@@ -1,0 +1,729 @@
+"""CKKS context: parameters, keys, and the homomorphic operations of the
+client-aided path.
+
+Counterpart of `fhe_spear_tpu/ckks/context.py` (main-path subset).  Every
+residue tensor is [..., limb, N] int64 in NTT domain + Montgomery form,
+canonical in [0, p); operations are plain torch functions on those
+tensors, and every transform goes through `NttContext.ntt`/`intt` (the
+CUDA kernels on the card, the plain torch loop on the CPU).
+
+  * Keyswitching is GHS/hybrid with single-limb digits and K special
+    primes: the same key tensor works at every level, decomposition is a
+    centered re-reduction, and the digit * key contraction is one
+    multiply-accumulate over the digit axis.
+  * Decryption never needs multiprecision CRT: the message magnitude is
+    kept below q0/2, so the first one or two limbs of c0 + c1*s determine
+    the value exactly.
+
+Key identities (decrypt = c0 + c1*s):
+  symmetric encrypt:  c1 = a (uniform),  c0 = -a*s + m + e
+  keyswitch digit j:  ksk_j = (-a_j*s + e_j + P*g_j*s', a_j) over Q*P,
+      where per limb g_j is delta_{ij} * (P mod q_j).
+  switched ct adds (sum_j D_j * ksk_j) / P  with D_j the centered
+      re-reductions of the source polynomial's limb-j coefficients.
+
+Montgomery bookkeeping: ciphertexts/plaintexts are Mont-form (x*R).
+Keyswitch keys are stored in R^2 form so that mont_mul(plain_digit, key)
+lands back in Mont form; scalar constants that multiply Mont values
+(P^-1, q_l^-1) are stored in Mont form (c*R).
+
+All key and noise randomness is drawn on the host from
+`np.random.RandomState(seed)` in the reference's draw order -- secret key,
+relin key (uniform, then gauss), then Galois keys in sorted order in
+chunks of 16 -- so a seeded context holds the reference's keys bit for
+bit.  Sums of canonical residues are taken exactly in int64 and reduced
+once (`% p`), which gives the same canonical word as the reference's
+chains of modular adds.
+
+Left out until a later slice: dnum > 1 grouped digits, `drop_galois_keys`,
+`identity_ksk`, `shard_eval_keys`, the four-step ("mxu") NTT backend.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.modops import (
+    MASK32, add_mod, barrett_reduce, cond_sub, mont_mul, mul_hi_u32,
+    mul_lo_u32, neg_mod, sub_mod,
+)
+from ..core.ntt import NttContext, require_device
+from ..core.primes import Prime, find_ntt_primes
+from .ciphertext import Ciphertext, Plaintext
+from .encoding import SlotEncoder
+
+__all__ = ["CkksParams", "CkksContext", "KeySwitchKey"]
+
+
+@dataclass(frozen=True)
+class CkksParams:
+    """CKKS parameter preset.
+
+    n:            ring dimension (power of two; n/2 complex slots).
+    num_limbs:    total scale limbs L (q0 plus L-1 rescale primes);
+                  fresh ciphertexts start at level L.
+    num_special:  K special (keyswitch) primes.
+    scale_bits:   log2 of the default scale (rescale primes sit near it).
+    secret_hamming_weight: sparse ternary secret weight; None = dense.
+    dnum:         digit count; only None (one digit per limb) is ported.
+    ntt_backend:  "stockham" or "pallas" -- in the port both name the same
+                  bit-reversed transform, run by the CUDA kernels on the
+                  card.  "mxu" (four-step, natural order) is not ported.
+    """
+
+    n: int
+    num_limbs: int
+    num_special: int = 1
+    scale_bits: int = 28
+    first_bits: int = 31
+    noise_sigma: float = 3.2
+    secret_hamming_weight: int | None = None
+    dnum: int | None = None
+    ntt_backend: str = "stockham"
+
+    @property
+    def scale(self) -> float:
+        return float(2.0 ** self.scale_bits)
+
+    # Max log2(Q*P) for 128-bit classical security with a ternary secret,
+    # per the homomorphicencryption.org standard tables.
+    _LOGQP_128BIT = {1024: 27, 2048: 54, 4096: 109, 8192: 218,
+                     16384: 438, 32768: 881}
+
+    @property
+    def log_qp(self) -> int:
+        """Approximate total modulus bits log2(Q*P): q0 (~first_bits) +
+        (L-1) scale primes (~scale_bits) + K special primes (~31 bits)."""
+        return (self.first_bits + (self.num_limbs - 1) * self.scale_bits
+                + 31 * self.num_special)
+
+    def security_statement(self) -> str:
+        """Security classification of this parameter set: "standard-128"
+        when log2(QP) is within the 128-bit ceiling for this N with a
+        dense ternary secret, "research-grade" otherwise."""
+        ceiling = self._LOGQP_128BIT.get(self.n)
+        lqp = self.log_qp
+        if ceiling is not None and lqp <= ceiling \
+                and self.secret_hamming_weight is None:
+            return (f"standard-128: log2(QP)~{lqp} <= {ceiling} "
+                    f"(128-bit ceiling at N={self.n}, dense ternary secret)")
+        reasons = []
+        if ceiling is None or lqp > ceiling:
+            reasons.append(f"log2(QP)~{lqp} > {ceiling} "
+                           f"(128-bit ceiling at N={self.n})")
+        if self.secret_hamming_weight is not None:
+            reasons.append(f"sparse secret h={self.secret_hamming_weight} "
+                           "(below dense-ternary table assumptions)")
+        return "research-grade: " + "; ".join(reasons)
+
+    @classmethod
+    def retrieval(cls, n: int = 8192) -> "CkksParams":
+        """CT-PT/CT-CT retrieval: one multiply + rescale (standard-128 at
+        N=8192)."""
+        return cls(n=n, num_limbs=3, num_special=1)
+
+    @classmethod
+    def client_aided(cls, n: int = 8192) -> "CkksParams":
+        """1-level BSGS round trips, N=8192, L=3, K=1 (standard-128)."""
+        return cls(n=n, num_limbs=3, num_special=1)
+
+    @classmethod
+    def deep(cls, n: int, depth: int, num_special: int = 1) -> "CkksParams":
+        """Fully-encrypted chains: depth limbs + q0 (research-grade at
+        production depths)."""
+        return cls(n=n, num_limbs=depth + 1, num_special=num_special)
+
+    @classmethod
+    def bootstrap(cls, n: int, num_limbs: int = 22, num_special: int = 2,
+                  hamming: int = 64, dnum: int | None = None) -> "CkksParams":
+        """Bootstrappable: sparse secret + deep chain (research-grade)."""
+        return cls(n=n, num_limbs=num_limbs, num_special=num_special,
+                   secret_hamming_weight=hamming, dnum=dnum)
+
+
+class KeySwitchKey:
+    """b, a: [dnum, L+K, N] int64, NTT domain, R^2 form (digit, limb,
+    coeff); dnum = L since digits are single limbs."""
+
+    def __init__(self, b: torch.Tensor, a: torch.Tensor):
+        self.b = b
+        self.a = a
+
+
+class CkksContext:
+    """Keys + tables + homomorphic ops for one parameter set on one device.
+
+    The API mirrors the reference's: encrypt / encrypt_replicated[_complex]
+    / decrypt_vec[_complex] / add / sub / negate / add_plain / mul_plain /
+    mul_scalar / multiply (+ relin) / rescale / mod_drop / rotate /
+    conjugate / hoisted_rotations.
+    """
+
+    def __init__(self, params: CkksParams, seed: int | None = None,
+                 sk_coeff: np.ndarray | None = None, device="cuda"):
+        """seed=None (the default) draws all key/noise randomness from OS
+        entropy; pass an explicit integer seed ONLY for reproducible tests
+        and benchmarks -- a seeded context is deterministic and therefore
+        NOT confidential.  sk_coeff restores a saved secret key; the
+        relinearization key is regenerated from it.  device: "cuda" (the
+        default) or "cpu"; "cuda" without a card raises."""
+        if params.ntt_backend == "mxu":
+            raise NotImplementedError(
+                "ntt_backend='mxu' (four-step NTT) is not ported yet")
+        if params.ntt_backend not in ("stockham", "pallas"):
+            raise ValueError(f"unknown ntt_backend {params.ntt_backend!r}")
+        self.device = require_device(device)
+        self.params = params
+        self.n = params.n
+        self.slots = params.n // 2
+        self.L = params.num_limbs
+        self.K = params.num_special
+        self.scale = params.scale
+        self.primes: tuple[Prime, ...] = find_ntt_primes(
+            params.n, params.num_limbs, params.scale_bits, params.first_bits,
+            params.num_special,
+        )
+        self.ntt = NttContext.build(params.n, self.primes, self.device)
+        self.encoder = SlotEncoder(params.n)
+        if seed is None:
+            ss = np.random.SeedSequence(
+                int.from_bytes(os.urandom(16), "little"))
+            self.rng = np.random.RandomState(np.random.MT19937(ss))
+        else:
+            self.rng = np.random.RandomState(seed)
+        self.seeded = seed is not None
+
+        LK = self.L + self.K
+        q = np.array([pr.p for pr in self.primes], dtype=np.uint64)
+        self.q_np = q
+        P = 1
+        for pr in self.primes[self.L:]:
+            P *= pr.p
+        self.P_int = P
+
+        self.dnum = params.dnum if params.dnum else self.L
+        if self.dnum != self.L:
+            raise NotImplementedError(
+                "dnum > 1 grouped keyswitch digits are not ported yet")
+        self.gsize = 1
+
+        dev = self.device
+        i64 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64),
+                                        device=dev)
+        r_of = lambda i: self.primes[i].mont_r
+
+        # Barrett magic per prime: floor(2^32 / p)
+        self.mu = i64(((1 << 32) // q)[:, None].astype(np.int64))
+        # centered-extension tables: q_s mod q_t and (q_s+1)//2
+        qmod = np.zeros((LK, LK), dtype=np.uint64)
+        for s in range(LK):
+            qmod[s] = q[s] % q
+        self.q_mod = i64(qmod[:, :, None].astype(np.int64))    # [S, T, 1]
+        self.q_half = i64(((q + 1) // 2)[:, None, None].astype(np.int64))
+
+        # keyswitch mod-down constants
+        self.Pinv_mont = i64(
+            [pow(P % int(q[i]), -1, int(q[i])) * r_of(i) % int(q[i])
+             for i in range(self.L)])[:, None]
+        self.Pmod_mont = i64(
+            [P % int(q[j]) * r_of(j) % int(q[j]) for j in range(self.L)]
+        )[:, None]
+        if self.K > 1:
+            phat = [P // int(q[self.L + k]) for k in range(self.K)]
+            self.phat_inv_mont = i64(
+                [pow(phat[k] % int(q[self.L + k]), -1, int(q[self.L + k]))
+                 * r_of(self.L + k) % int(q[self.L + k])
+                 for k in range(self.K)])[:, None]
+            self.phat_mod_mont = i64(
+                [[phat[k] % int(q[i]) * r_of(i) % int(q[i])
+                  for i in range(self.L)] for k in range(self.K)])[:, :, None]
+            # centered-CRT fixed-point constants: v = round(sum_k y_k / p_k)
+            self._sp_muA = i64([(1 << 32) // int(q[self.L + k])
+                                for k in range(self.K)])[:, None]
+            self._sp_B64 = i64([((1 << 64) // int(q[self.L + k])) & MASK32
+                                for k in range(self.K)])[:, None]
+
+        # rescale constants: (q_l^-1 mod q_i) * R, lower-triangular [L, L]
+        qlinv = np.zeros((self.L, self.L), dtype=np.int64)
+        for l in range(1, self.L):
+            for i in range(l):
+                qlinv[l, i] = (pow(int(q[l]), -1, int(q[i])) * r_of(i)
+                               % int(q[i]))
+        self._qlinv = i64(qlinv)
+        self._idx_cache: dict = {}
+        self._perm_cache: dict = {}
+
+        # --- keys (host draw order of the reference) ---
+        h = params.secret_hamming_weight
+        if sk_coeff is not None:
+            self._sk_coeff = np.asarray(sk_coeff, dtype=np.int64)
+            assert self._sk_coeff.shape == (self.n,)
+        elif h is None:
+            self._sk_coeff = self.rng.randint(-1, 2, size=self.n
+                                              ).astype(np.int64)
+        else:
+            self._sk_coeff = np.zeros(self.n, dtype=np.int64)
+            pos = self.rng.choice(self.n, size=h, replace=False)
+            self._sk_coeff[pos] = self.rng.choice([-1, 1], size=h)
+        self.s_eval = self._to_eval_mont(self._sk_coeff, tuple(range(LK)))
+        self.relin_key: KeySwitchKey = self._make_ksk(
+            mont_mul(self.s_eval, self.s_eval, self.ntt.p, self.ntt.pinv))
+        self.galois_keys: dict[int, KeySwitchKey] = {}
+
+    # ------------------------------------------------------------------
+    # small host/device helpers
+    # ------------------------------------------------------------------
+
+    def _idx(self, rows) -> torch.Tensor:
+        """Cached device index tensor of a row tuple."""
+        key = tuple(int(r) for r in rows)
+        t = self._idx_cache.get(key)
+        if t is None:
+            t = torch.tensor(key, dtype=torch.long, device=self.device)
+            self._idx_cache[key] = t
+        return t
+
+    def _sel(self, table: torch.Tensor, rows) -> torch.Tensor:
+        return table.index_select(0, self._idx(rows))
+
+    def perm(self, g: int) -> torch.Tensor:
+        """Cached device automorphism permutation for Galois element g."""
+        t = self._perm_cache.get(g)
+        if t is None:
+            t = torch.as_tensor(self.ntt.autoperm(g), dtype=torch.long,
+                                device=self.device)
+            self._perm_cache[g] = t
+        return t
+
+    def _p(self, l):
+        """(p, pinv) of the first l limbs, [l, 1] device tensors."""
+        return self.ntt.p[:l], self.ntt.pinv[:l]
+
+    def _reduce_rows(self, coeffs: np.ndarray, rows) -> np.ndarray:
+        """Centered int64 coefficients [..., N] -> residues [..., R, N]."""
+        q = self.q_np[list(rows)].astype(np.int64)
+        return coeffs[..., None, :] % q[:, None]
+
+    def _tensor(self, x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, dtype=np.int64),
+                               device=self.device)
+
+    def _to_eval_mont(self, coeffs: np.ndarray, rows: tuple) -> torch.Tensor:
+        """Centered integer coefficients -> device eval/Mont tensor [R, N]."""
+        res = self._tensor(self._reduce_rows(coeffs, rows))
+        return self.ntt.to_mont(self.ntt.ntt(res, rows), rows)
+
+    def _uniform(self, shape_rows, rows) -> np.ndarray:
+        """Uniform residues mod q_rows, shape [..., R, N] (R = len(rows))."""
+        q = self.q_np[list(rows)]
+        return self.rng.randint(
+            0, q[:, None], size=shape_rows + (len(rows), self.n)
+        ).astype(np.int64)
+
+    def _gauss(self, shape=()) -> np.ndarray:
+        return np.round(
+            self.rng.normal(0.0, self.params.noise_sigma, shape + (self.n,))
+        ).astype(np.int64)
+
+    def targets(self, l: int) -> tuple:
+        """Active limb rows during keyswitch at level l: scale limbs + specials."""
+        return tuple(range(l)) + tuple(range(self.L, self.L + self.K))
+
+    # ------------------------------------------------------------------
+    # key generation
+    # ------------------------------------------------------------------
+
+    def num_digits(self, l: int) -> int:
+        """Active keyswitch digits at level l (= l for single-limb digits)."""
+        return l
+
+    def _build_ksk(self, a: torch.Tensor, e: torch.Tensor,
+                   sprime_eval: torch.Tensor) -> KeySwitchKey:
+        """Key for s' -> s from uniform a and noise e [..., dnum, L+K, N]
+        (a is Mont by fiat; e plain coefficients)."""
+        ntt = self.ntt
+        all_rows = tuple(range(self.L + self.K))
+        e_ev = ntt.to_mont(ntt.ntt(e, all_rows), all_rows)
+        b = add_mod(neg_mod(mont_mul(a, self.s_eval, ntt.p, ntt.pinv), ntt.p),
+                    e_ev, ntt.p)
+        # digit j carries (P mod q_j) * s' on limb j (zero elsewhere and on
+        # the specials, since P | P*g_j there)
+        msg = mont_mul(sprime_eval[..., : self.L, :], self.Pmod_mont,
+                       ntt.p[: self.L], ntt.pinv[: self.L])   # [..., L, N]
+        j = torch.arange(self.L, device=self.device)
+        b[..., j, j, :] = add_mod(b[..., j, j, :], msg, ntt.p[: self.L])
+        return KeySwitchKey(ntt.to_mont(b, all_rows), ntt.to_mont(a, all_rows))
+
+    def _make_ksk(self, sprime_eval: torch.Tensor) -> KeySwitchKey:
+        """Keyswitch key for s' -> s.  sprime_eval: [L+K, N] eval/Mont."""
+        all_rows = tuple(range(self.L + self.K))
+        a = self._tensor(self._uniform((self.dnum,), all_rows))
+        e = self._tensor(self._reduce_rows(self._gauss((self.dnum,)),
+                                           all_rows))
+        return self._build_ksk(a, e, sprime_eval)
+
+    def galois_element(self, steps: int) -> int:
+        """Galois element for a cyclic slot rotation by `steps` (left):
+        5^steps mod 2N; the conjugation element is 2N-1."""
+        return pow(5, steps % (self.n // 2), 2 * self.n)
+
+    def ensure_galois(self, steps_list, conj: bool = False) -> None:
+        """Generate (once) the rotation keys for the given step set, in
+        sorted Galois-element order and chunks of 16 keys (the reference's
+        draw order: uniform, then gauss, per chunk)."""
+        gs = [self.galois_element(s) for s in steps_list]
+        if conj:
+            gs.append(2 * self.n - 1)
+        gs = sorted({g for g in gs if g not in self.galois_keys and g != 1})
+        all_rows = tuple(range(self.L + self.K))
+        ch = 16
+        for c0 in range(0, len(gs), ch):
+            sub = gs[c0: c0 + ch]
+            a = self._tensor(self._uniform((len(sub), self.dnum), all_rows))
+            e = self._tensor(self._reduce_rows(
+                self._gauss((len(sub), self.dnum)), all_rows))
+            sprime = torch.stack([self.s_eval.index_select(-1, self.perm(g))
+                                  for g in sub])
+            k = self._build_ksk(a, e, sprime)
+            for i, g in enumerate(sub):
+                self.galois_keys[g] = KeySwitchKey(k.b[i], k.a[i])
+
+    # ------------------------------------------------------------------
+    # encode / encrypt / decrypt
+    # ------------------------------------------------------------------
+
+    def encode(self, vec, level: int | None = None, scale: float | None = None
+               ) -> Plaintext:
+        """Encode complex/real slots into an NTT-domain plaintext."""
+        level = self.L if level is None else level
+        scale = self.scale if scale is None else scale
+        coeffs = self.encoder.encode(np.asarray(vec), scale,
+                                     wide=scale > 2.0 ** 31)
+        return Plaintext(self._to_eval_mont(coeffs, tuple(range(level))),
+                         scale)
+
+    def encrypt(self, vec, level: int | None = None, scale: float | None = None
+                ) -> Ciphertext:
+        """Symmetric encryption with host randomness."""
+        level = self.L if level is None else level
+        scale = self.scale if scale is None else scale
+        coeffs = self.encoder.encode(np.asarray(vec), scale,
+                                     wide=scale > 2.0 ** 31)
+        rows = tuple(range(level))
+        lead = coeffs.shape[:-1]
+        m = self._tensor(self._reduce_rows(coeffs, rows))
+        a = self._tensor(self._uniform(lead, rows))
+        e = self._tensor(self._reduce_rows(self._gauss(lead), rows))
+        ntt = self.ntt
+        p, pinv = self._p(level)
+        me = ntt.to_mont(ntt.ntt(m, rows), rows)
+        ee = ntt.to_mont(ntt.ntt(e, rows), rows)
+        c0 = add_mod(add_mod(neg_mod(mont_mul(a, self.s_eval[:level], p,
+                                              pinv), p), me, p), ee, p)
+        return Ciphertext(torch.stack([c0, a], dim=-3), scale)
+
+    def encrypt_replicated(self, x, level=None, scale=None) -> Ciphertext:
+        """Encrypt x tiled across all slots."""
+        x = np.asarray(x)
+        reps = self.slots // x.shape[-1]
+        return self.encrypt(np.tile(x, reps), level, scale)
+
+    def encrypt_replicated_complex(self, z, level=None, scale=None
+                                   ) -> Ciphertext:
+        z = np.asarray(z, dtype=np.complex128)
+        reps = self.slots // z.shape[-1]
+        return self.encrypt(np.tile(z, reps), level, scale)
+
+    def decrypt_limbs(self, c: torch.Tensor, nl: int) -> torch.Tensor:
+        """c [..., 2, l, N] -> plain coefficient residues [..., nl, N] of
+        c0 + c1*s on the first nl limbs."""
+        ntt = self.ntt
+        rows = tuple(range(nl))
+        p, pinv = self._p(nl)
+        v = add_mod(c[..., 0, :nl, :],
+                    mont_mul(c[..., 1, :nl, :], self.s_eval[:nl], p, pinv), p)
+        return ntt.from_mont(ntt.intt(v, rows), rows)
+
+    def decrypt_to_coeffs(self, ct: Ciphertext) -> np.ndarray:
+        """Decrypt to centered integer coefficients from the first
+        min(2, level) limbs (3 at composite scales > 2^40), exact uint64
+        CRT (see compose_coeffs)."""
+        nl = min(3 if ct.scale > 2.0 ** 40 else 2, ct.level)
+        return self.compose_coeffs(self.decrypt_limbs(ct.c, nl).cpu().numpy())
+
+    def compose_coeffs(self, limbs: np.ndarray) -> np.ndarray:
+        """Residue limbs [..., nl, N] (nl = 1, 2 or 3, coefficient domain,
+        plain) -> centered float64 coefficients via exact uint64 CRT."""
+        limbs = np.asarray(limbs).astype(np.uint64)
+        q0 = int(self.q_np[0])
+        if limbs.shape[-2] == 1:
+            c = limbs[..., 0, :].astype(np.int64)
+            c[c > q0 // 2] -= q0
+            return c.astype(np.float64)
+        q1 = int(self.q_np[1])
+        t0, t1 = limbs[..., 0, :], limbs[..., 1, :]
+        q0inv = np.uint64(pow(q0, -1, q1))
+        d = (t1 + np.uint64(q1) - t0 % np.uint64(q1)) % np.uint64(q1)
+        m1 = d * q0inv % np.uint64(q1)
+        v = t0 + np.uint64(q0) * m1          # exact: < q0*q1 < 2^62
+        big = q0 * q1
+        if limbs.shape[-2] == 2:
+            out = v.astype(np.float64)
+            out[v > big // 2] -= float(big)
+            return out
+        q2 = int(self.q_np[2])
+        t2 = limbs[..., 2, :]
+        q01inv = np.uint64(pow(big % q2, -1, q2))
+        d2 = (t2 + np.uint64(q2) - v % np.uint64(q2)) % np.uint64(q2)
+        k = (d2 * q01inv % np.uint64(q2)).astype(np.int64)
+        k[k > q2 // 2] -= q2
+        vi = v.astype(np.int64) + np.int64(big) * k
+        return vi.astype(np.float64)
+
+    def decrypt_vec_complex(self, ct: Ciphertext, length: int | None = None
+                            ) -> np.ndarray:
+        z = self.encoder.decode(self.decrypt_to_coeffs(ct), ct.scale)
+        return z if length is None else z[:length]
+
+    def decrypt_vec(self, ct: Ciphertext, length: int | None = None
+                    ) -> np.ndarray:
+        return self.decrypt_vec_complex(ct, length).real
+
+    # ------------------------------------------------------------------
+    # arithmetic
+    # ------------------------------------------------------------------
+
+    def add(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
+        assert x.level == y.level and _close(x.scale, y.scale), (x.scale,
+                                                                  y.scale)
+        return Ciphertext(add_mod(x.c, y.c, self._p(x.level)[0]), x.scale)
+
+    def sub(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
+        assert x.level == y.level and _close(x.scale, y.scale)
+        return Ciphertext(sub_mod(x.c, y.c, self._p(x.level)[0]), x.scale)
+
+    def negate(self, x: Ciphertext) -> Ciphertext:
+        return Ciphertext(neg_mod(x.c, self._p(x.level)[0]), x.scale)
+
+    def add_plain(self, x: Ciphertext, pt: Plaintext) -> Ciphertext:
+        assert _close(x.scale, pt.scale) and x.level == pt.level
+        c0 = add_mod(x.c[..., 0, :, :], pt.p, self._p(x.level)[0])
+        return Ciphertext(torch.stack([c0, x.c[..., 1, :, :]], dim=-3),
+                          x.scale)
+
+    def mul_plain(self, x: Ciphertext, pt: Plaintext) -> Ciphertext:
+        assert x.level == pt.level, (x.level, pt.level)
+        p, pinv = self._p(x.level)
+        return Ciphertext(mont_mul(x.c, pt.p.unsqueeze(-3), p, pinv),
+                          x.scale * pt.scale)
+
+    def mul_scalar(self, x: Ciphertext, value: float,
+                   scale: float | None = None) -> Ciphertext:
+        """Multiply by a plaintext scalar: one Montgomery multiply by a
+        per-limb residue (a constant is constant across the evaluation
+        domain).  Consumes scale like mul_plain."""
+        scale = self.scale if scale is None else scale
+        v = int(round(value * scale))
+        l = x.level
+        const = self._tensor([v % int(self.q_np[i]) * self.primes[i].mont_r
+                              % int(self.q_np[i]) for i in range(l)])[:, None]
+        p, pinv = self._p(l)
+        return Ciphertext(mont_mul(x.c, const, p, pinv), x.scale * scale)
+
+    def multiply(self, x: Ciphertext, y: Ciphertext, relin: bool = True
+                 ) -> Ciphertext:
+        """CT x CT multiply (+ relinearize)."""
+        assert x.level == y.level
+        l = x.level
+        p, pinv = self._p(l)
+        x0, x1 = x.c[..., 0, :, :], x.c[..., 1, :, :]
+        y0, y1 = y.c[..., 0, :, :], y.c[..., 1, :, :]
+        d0 = mont_mul(x0, y0, p, pinv)
+        d1 = add_mod(mont_mul(x0, y1, p, pinv), mont_mul(x1, y0, p, pinv), p)
+        d2 = mont_mul(x1, y1, p, pinv)
+        if not relin:
+            return Ciphertext(torch.stack([d0, d1, d2], dim=-3),
+                              x.scale * y.scale)
+        kb, ka = self.select_key(self.relin_key, l)
+        ks = self._mod_down(self._apply_ksk(self._decompose(d2, l), kb, ka, l),
+                            l)
+        c = torch.stack([add_mod(d0, ks[..., 0, :, :], p),
+                         add_mod(d1, ks[..., 1, :, :], p)], dim=-3)
+        return Ciphertext(c, x.scale * y.scale)
+
+    def rescale(self, x: Ciphertext) -> Ciphertext:
+        l = x.level
+        assert l >= 2, "cannot rescale at level 1"
+        return Ciphertext(self._rescale_core(x.c, l),
+                          x.scale / float(self.q_np[l - 1]))
+
+    def _rescale_core(self, c: torch.Tensor, l: int) -> torch.Tensor:
+        """[..., l, N] Mont eval -> [..., l-1, N]: exact divide by q_{l-1}."""
+        ntt = self.ntt
+        rows = tuple(range(l - 1))
+        qlinv = self._qlinv[l - 1, : l - 1, None]
+        p, pinv = self._p(l - 1)
+        last = ntt.from_mont(ntt.intt(c[..., l - 1:, :], (l - 1,)), (l - 1,))
+        u = self._extend_centered(last, (l - 1,), rows)[..., 0, :, :]
+        u = ntt.to_mont(ntt.ntt(u, rows), rows)
+        return mont_mul(sub_mod(c[..., : l - 1, :], u, p), qlinv, p, pinv)
+
+    def mod_drop(self, x: Ciphertext, levels: int = 1) -> Ciphertext:
+        """Drop trailing limb rows (exact mod switch)."""
+        assert x.level - levels >= 1
+        return Ciphertext(x.c[..., : x.level - levels, :], x.scale)
+
+    def mod_switch_to(self, x: Ciphertext, level: int) -> Ciphertext:
+        assert level <= x.level
+        return self.mod_drop(x, x.level - level) if level < x.level else x
+
+    # ------------------------------------------------------------------
+    # keyswitch internals
+    # ------------------------------------------------------------------
+
+    def _extend_centered(self, coeffs: torch.Tensor, src_rows: tuple,
+                         tgt_rows: tuple) -> torch.Tensor:
+        """Plain coefficients [..., S, N] (row s mod q_src[s]) ->
+        [..., S, T, N]: centered lift re-reduced modulo each target prime."""
+        c = coeffs[..., :, None, :]
+        p_t = self._sel(self.ntt.p, tgt_rows)[None]          # [1, T, 1]
+        mu_t = self._sel(self.mu, tgt_rows)[None]
+        r = barrett_reduce(c, p_t, mu_t)
+        qm = self.q_mod.index_select(0, self._idx(src_rows)).index_select(
+            1, self._idx(tgt_rows))                           # [S, T, 1]
+        r_neg = cond_sub(r + (p_t - qm), p_t)
+        return torch.where(c >= self._sel(self.q_half, src_rows), r_neg, r)
+
+    def _decompose(self, c1: torch.Tensor, l: int) -> torch.Tensor:
+        """[..., l, N] Mont eval -> extended digits [..., l, T, N], plain,
+        eval."""
+        ntt = self.ntt
+        rows = tuple(range(l))
+        tgt = self.targets(l)
+        coeffs = ntt.from_mont(ntt.intt(c1, rows), rows)
+        return ntt.ntt(self._extend_centered(coeffs, rows, tgt), tgt)
+
+    def select_key(self, ksk: KeySwitchKey, l: int):
+        """Slice a keyswitch key down to the digits/rows active at level l."""
+        idx = self._idx(self.targets(l))
+        d_l = self.num_digits(l)
+        return (ksk.b[..., :d_l, :, :].index_select(-2, idx),
+                ksk.a[..., :d_l, :, :].index_select(-2, idx))
+
+    def _apply_ksk(self, D: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+                   l: int) -> torch.Tensor:
+        """sum_j D_j * key_j over digits -> [..., 2, T, N] Mont eval.
+        b, a: level-selected key tensors [(...,) d_l, T, N]."""
+        tgt = self.targets(l)
+        p_t, pinv_t = self._sel(self.ntt.p, tgt), self._sel(self.ntt.pinv, tgt)
+        ks0 = mont_mul(D, b, p_t, pinv_t).sum(dim=-3) % p_t
+        ks1 = mont_mul(D, a, p_t, pinv_t).sum(dim=-3) % p_t
+        return torch.stack([ks0, ks1], dim=-3)
+
+    def _mod_down(self, ks: torch.Tensor, l: int) -> torch.Tensor:
+        """[..., 2, l+K, N] Mont eval over Q_l*P -> [..., 2, l, N] Mont eval
+        over Q_l (divide by P, CENTERED fast base conversion: the
+        representative error stays <= 1 unit)."""
+        ntt = self.ntt
+        rows = tuple(range(l))
+        sp_rows = tuple(range(self.L, self.L + self.K))
+        p, pinv = self._p(l)
+        t = ntt.from_mont(ntt.intt(ks[..., l:, :], sp_rows), sp_rows)
+        if self.K > 1:
+            p_sp = self._sel(ntt.p, sp_rows)
+            y = mont_mul(t, self.phat_inv_mont, p_sp,
+                         self._sel(ntt.pinv, sp_rows))
+            # v = round(sum_k y_k / p_k) in 32-bit fixed point: u_k is the
+            # wrapping low word y*muA + mulhi(y, B64); the int64 sum holds
+            # the reference's (hi, lo) carry pair exactly
+            u32f = (mul_lo_u32(y, self._sp_muA)
+                    + mul_hi_u32(y, self._sp_B64)) & MASK32
+            tot = u32f.sum(dim=-2)
+            v = (tot >> 32) + ((tot & MASK32) >> 31)            # [.., N]
+            r = barrett_reduce(y[..., :, None, :], p[None], self.mu[:l][None])
+            r = mont_mul(r, self.phat_mod_mont[:, :l], p, pinv)
+            u = r.sum(dim=-3) % p
+            vq = mont_mul(v[..., None, :], self.Pmod_mont[:l], p, pinv)
+            u = sub_mod(u, vq, p)
+        else:
+            u = self._extend_centered(t, sp_rows, rows)[..., 0, :, :]
+        u = ntt.to_mont(ntt.ntt(u, rows), rows)
+        return mont_mul(sub_mod(ks[..., :l, :], u, p), self.Pinv_mont[:l],
+                        p, pinv)
+
+    def keyswitch_rotated(self, c: torch.Tensor, D: torch.Tensor,
+                          perm: torch.Tensor, kb: torch.Tensor,
+                          ka: torch.Tensor, l: int) -> torch.Tensor:
+        """Rotate ct c [2, l, N] whose c1 digits D [d_l, T, N] are hoisted,
+        by the automorphism `perm` [..., N] with level-selected keys
+        kb/ka [..., d_l, T, N] -> [..., 2, l, N] (a leading batch of
+        rotations when perm and keys carry one)."""
+        p, _ = self._p(l)
+        Dg = _take_last(D, perm)
+        ks = self._mod_down(self._apply_ksk(Dg, kb, ka, l), l)
+        c0 = add_mod(_take_last(c[0], perm), ks[..., 0, :, :], p)
+        return torch.stack([c0, ks[..., 1, :, :]], dim=-3)
+
+    # ------------------------------------------------------------------
+    # rotations
+    # ------------------------------------------------------------------
+
+    def rotate(self, x: Ciphertext, steps: int) -> Ciphertext:
+        """Cyclic slot rotation by `steps` (slot j <- slot j+steps)."""
+        if steps % self.slots == 0:
+            return x
+        g = self.galois_element(steps)
+        assert g in self.galois_keys, f"missing galois key for step {steps}"
+        return Ciphertext(self._rotate_g(x.c, x.level, g), x.scale)
+
+    def conjugate(self, x: Ciphertext) -> Ciphertext:
+        g = 2 * self.n - 1
+        assert g in self.galois_keys, "missing conjugation key"
+        return Ciphertext(self._rotate_g(x.c, x.level, g), x.scale)
+
+    def _rotate_g(self, c: torch.Tensor, l: int, g: int) -> torch.Tensor:
+        p, _ = self._p(l)
+        cp = c.index_select(-1, self.perm(g))
+        kb, ka = self.select_key(self.galois_keys[g], l)
+        ks = self._mod_down(
+            self._apply_ksk(self._decompose(cp[..., 1, :, :], l), kb, ka, l),
+            l)
+        return torch.stack([add_mod(cp[..., 0, :, :], ks[..., 0, :, :], p),
+                            ks[..., 1, :, :]], dim=-3)
+
+    def hoisted_rotations(self, x: Ciphertext, steps: tuple
+                          ) -> list[Ciphertext]:
+        """Rotate one ciphertext [2, l, N] by many steps, sharing the digit
+        decomposition.  Step 0 passes through."""
+        l = x.level
+        D = self._decompose(x.c[1], l)
+        outs = []
+        for s in steps:
+            if s % self.slots == 0:
+                outs.append(x)
+                continue
+            g = self.galois_element(s)
+            kb, ka = self.select_key(self.galois_keys[g], l)
+            outs.append(Ciphertext(
+                self.keyswitch_rotated(x.c, D, self.perm(g), kb, ka, l),
+                x.scale))
+        return outs
+
+
+def _take_last(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """x[..., perm] along the last axis; a perm with leading dims [S, N]
+    gives a leading batch [S, *x.shape]."""
+    if perm.dim() == 1:
+        return x.index_select(-1, perm)
+    S = perm.shape[0]
+    idx = perm.view((S,) + (1,) * (x.dim() - 1) + (x.shape[-1],))
+    return torch.gather(x.unsqueeze(0).expand((S,) + x.shape), -1,
+                        idx.expand((S,) + x.shape))
+
+
+def _close(a: float, b: float, rtol: float = 1e-6) -> bool:
+    return abs(a - b) <= rtol * max(abs(a), abs(b))

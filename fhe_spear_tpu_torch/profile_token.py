@@ -1,0 +1,87 @@
+"""Where one client-aided token's time goes on the card.
+
+    python -m fhe_spear_tpu_torch.profile_token [--blocks 2] [--top 15]
+
+Builds the chip_smoke configuration (D=2048, F=8192, N=8192, L=3, K=1,
+level 3, fused transport, i32 staging), runs one warm-up token, then
+traces one steady token with torch.profiler and prints: the token's wall
+time, the device's busy time and idle share over that window, and the
+device time by kernel name (largest first).  Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="fhe_spear_tpu_torch.profile_token")
+    ap.add_argument("--blocks", type=int, default=2)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .ckks import CkksContext, CkksParams
+    from .models.client_aided import FheRwkvClient, FheRwkvServer
+    from .models.rwkv7 import generate_token_plaintext, make_random_model
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_token: needs a CUDA card")
+    model = make_random_model(d=2048, f=8192, n_blocks=args.blocks,
+                              head_size=64, vocab=1000, seed=42)
+    ctx = CkksContext(CkksParams(n=8192, num_limbs=3, num_special=1), seed=0)
+    server = FheRwkvServer(ctx, model, level=3, stage_mode="i32")
+    client = FheRwkvClient(ctx, model, server)
+    state = model.zero_state()
+    _, state = generate_token_plaintext(model, 5, state)
+    _, state, _ = client.generate_token(11, state)          # warm-up
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, state, timings = client.generate_token(2, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = 0.0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    cur_s = cur_e = None
+    for s, e in spans:                 # union of kernel intervals
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    by_name: dict = {}
+    for e in events:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    total_dev = sum(t for t, _ in by_name.values())
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"token wall {wall * 1e3:.1f} ms over {args.blocks} blocks; device "
+          f"busy {busy_us / 1e3:.1f} ms, idle share "
+          f"{1 - busy_us / 1e3 / (wall * 1e3):.3f}; "
+          f"{len(events)} device events")
+    agg = {}
+    for bt in timings:
+        for k, v in bt.items():
+            agg[k] = agg.get(k, 0.0) + v
+    print("host phases (s): " + " ".join(f"{k}={v:.4f}"
+                                         for k, v in sorted(agg.items())))
+    print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                               )[: args.top]:
+        print(f"{t / 1e3:10.3f} {t / total_dev:6.3f} {c:6d}  {name[:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,83 @@
+"""The port's BsgsMatvec against the JAX package's at d=32, n=256: the
+staged int32 encodings, the expanded residues and the output ciphertext
+words are equal, in both the expanded and the i32 stage modes."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fhe_spear_tpu.ckks import CkksContext as RefContext
+from fhe_spear_tpu.ckks import CkksParams as RefParams
+from fhe_spear_tpu.ops.bsgs import BsgsMatvec as RefMatvec
+from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+from fhe_spear_tpu_torch.ops.bsgs import (BsgsMatvec, bsgs_dims,
+                                          extract_diagonals, rns_expand)
+
+D = 32
+
+
+@pytest.fixture(scope="module")
+def setup():
+    ref = RefContext(RefParams(n=256, num_limbs=3, num_special=1), seed=11)
+    port = CkksContext(CkksParams(n=256, num_limbs=3, num_special=1),
+                       seed=11, device="cpu")
+    reng, peng = RefMatvec(ref, D), BsgsMatvec(port, D)
+    rng = np.random.RandomState(2)
+    w = rng.uniform(-1, 1, (D, D)) / np.sqrt(D)
+    x = rng.uniform(-1, 1, D)
+    rct, pct = ref.encrypt_replicated(x), port.encrypt_replicated(x)
+    return ref, port, reng, peng, w, x, rct, pct
+
+
+def test_dims_and_diagonals():
+    assert bsgs_dims(2048) == (46, 45)
+    assert bsgs_dims(32) == (6, 6)
+    w = np.arange(36.0).reshape(6, 6)
+    diags = extract_diagonals(w)
+    G, B = bsgs_dims(6)
+    assert diags.shape == (B, G, 6)
+    np.testing.assert_array_equal(diags[0, 1], [w[j, (j + 1) % 6]
+                                                for j in range(6)])
+
+
+def test_matvec_expanded_bitwise(setup):
+    ref, port, reng, peng, w, x, rct, pct = setup
+    np.testing.assert_array_equal(np.asarray(rct.c).astype(np.int64),
+                                  pct.c.numpy())
+    renc, penc = reng.encode(w), peng.encode(w)
+    np.testing.assert_array_equal(renc.coeffs, penc.coeffs)
+    rpt, ppt = reng.load(renc, 3), peng.load(penc, 3)
+    np.testing.assert_array_equal(np.asarray(rpt).astype(np.int64),
+                                  ppt.numpy())
+    rout, pout = reng(rct, rpt), peng(pct, ppt)
+    assert rout.scale == pout.scale
+    np.testing.assert_array_equal(np.asarray(rout.c).astype(np.int64),
+                                  pout.c.numpy())
+    got = port.decrypt_vec(pout)[:D]
+    np.testing.assert_allclose(got, w @ x, atol=1e-3)
+
+
+def test_matvec_i32_bitwise(setup):
+    ref, port, reng, peng, w, x, rct, pct = setup
+    renc, penc = reng.encode(w), peng.encode(w)
+    rout = jax.jit(reng._kernel_raw(3, i32=True))(
+        rct.c, jax.numpy.asarray(renc.coeffs), *reng._xs(3))
+    pout = peng._kernel_raw(3, i32=True)(
+        pct.c, torch.as_tensor(penc.coeffs), *peng._xs(3))
+    np.testing.assert_array_equal(np.asarray(rout).astype(np.int64),
+                                  pout.numpy())
+    # the two stage modes give the same words in the port too
+    np.testing.assert_array_equal(
+        pout.numpy(), peng(pct, peng.load(penc, 3)).c.numpy())
+
+
+def test_rns_expand_negative_coeffs(setup):
+    from fhe_spear_tpu.ops.bsgs import rns_expand as ref_expand
+
+    ref, port = setup[:2]
+    c = np.array([[-(2 ** 31), -1, 0, 1, 2 ** 31 - 1] * 51 + [7]],
+                 dtype=np.int32)
+    want = np.asarray(ref_expand(ref, jax.numpy.asarray(c), 3))
+    got = rns_expand(port, torch.as_tensor(c), 3)
+    np.testing.assert_array_equal(want.astype(np.int64), got.numpy())
