@@ -1,21 +1,32 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # build + kernel checks only
 
 Phases (each failure raises, and the script exits non-zero):
   1. device: fail without CUDA; print the card's name and power limit;
-  2. build: compile the CUDA kernels (nvcc, sm_90a) and the host batch
-     encoder (g++) from the sources in this checkout, in parallel;
-  3. kernels: hold NTT kernels K1/K2 against their plain torch versions,
-     bitwise, at N=8192 and the batch shapes of the main path, check the
-     round trip, and time kernel and plain version (CUDA events, median);
-  4. main path: client-aided RWKV-7 generation through
-     `run_generation` at D=2048, F=8192, N=8192, L=3, K=1, level 3 on the
-     fused transport with i32 staging (depth cut to 2 blocks; 2 tokens,
-     the first a warm-up), then one token of the explicit transport on
-     1 block.  Every token must match its plaintext twin with logit
-     correlation >= 0.9999, and the kernel launch counters must rise;
-  5. print the kernels line, then the device line last.
+  2. build: compile the CUDA kernels (one nvcc per source: csrc/ntt.cu,
+     csrc/fourstep.cu) and the host batch encoder (g++) from the sources
+     in this checkout, all started together;
+  3. kernels: hold NTT kernels K1/K2 and the four-step kernels
+     fourstep_fwd/fourstep_inv against their plain torch versions,
+     bitwise, at N=8192 and the batch shapes of the main path (and one
+     N=16384 shape for the four-step pair), check the round trips and
+     fourstep_fwd against K1 through bitrev, and time kernel and plain
+     version (CUDA events, median);
+  4. classic path: client-aided RWKV-7 generation through `run_generation`
+     at D=2048, F=8192, N=8192, L=3, K=1, level 3 on the fused transport
+     with i32 staging (depth cut to 2 blocks; 2 tokens, the first a
+     warm-up), then one token of the explicit transport on 1 block;
+  5. device client, stockham: `run_generation_device` at the same widths
+     and depth (2 tokens); K1/K2 launches must rise;
+  6. device client, mxu: the same run on a four-step ("mxu") context;
+     fourstep_fwd/fourstep_inv launches must rise and K1/K2 stay at 0;
+  7. streams: `generate_tokens_streams` with 4 streams on 1 block, and
+     `run_generation_batched` with 2 streams on 1 block, 1 token.
+  Every token must match its plaintext twin with logit correlation
+  >= 0.999 (0.9999 on the classic path), every stream its own twin;
+  8. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -27,18 +38,27 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
-# the card's memory rate and 32-bit integer rate (non-tensor), H100 SXM
-# data sheet at 700 W: 3.35 TB/s, 67 T 32-bit ops/s
+# the card's memory rate, 32-bit integer rate (non-tensor) and int8
+# tensor-core rate, H100 SXM data sheet at 700 W: 3.35 TB/s, 67 T 32-bit
+# ops/s, 1,979 T int8 ops/s (dense)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+INT8_TC_OPS_PER_S = 1979e12
 # ~10 ms at the H100's ~2 GHz clock: longer than the host takes to queue
 # the 21 timed calls of a kernel
 SPIN_CYCLES = 20_000_000
 
 D, F, N, L, K, LEVEL = 2048, 8192, 8192, 3, 1, 3
+HEAD_SIZE = 64
 BLOCKS = 2             # depth cut from the model's 24 to fit the time limit
 SEED_TOKENS = [5, 11, 2]
+CORR_DEVICE = 0.999    # the bar of tests/test_device_client.py
+CORR_CLASSIC = 0.9999  # the bar of tests/test_client_aided.py
+PREENC_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke_preenc"
+KERNELS = ("ntt_fwd", "ntt_inv", "fourstep_fwd", "fourstep_inv")
+DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
@@ -57,25 +77,30 @@ def phase_device():
         f"nvidia-smi failed: {smi.stderr.strip()}"
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; the host shows "
+        f"{torch.cuda.device_count()} card(s), this run uses cuda:0")
     return card
 
 
 def phase_build():
     from fhe_spear_tpu_torch import native
-    from fhe_spear_tpu_torch.core import ntt_cuda
+    from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        kern = pool.submit(ntt_cuda.build)
+    libs = (ntt_cuda.LIBRARY, fourstep_cuda.LIBRARY)
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(lib.build) for lib in libs]
         enc = pool.submit(native.available)
-        kern.result()
+        for j in jobs:
+            j.result()
         have_native = enc.result()
-    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc {ntt_cuda.build_seconds:.2f}s"
-        f"; host batch encoder: {'native' if have_native else 'numpy'})")
-    for line in ntt_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {time.perf_counter() - t0:.2f}s ("
+        + ", ".join(f"{lib.source.name} {lib.seconds:.2f}s" for lib in libs)
+        + f"; host batch encoder: {'native' if have_native else 'numpy'})")
+    for lib in libs:
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {lib.source.name}: {line.strip()}")
 
 
 def _time_ms(fn, runs=21):
@@ -98,183 +123,372 @@ def _time_ms(fn, runs=21):
     return times[runs // 2]
 
 
-def _bound(B: int, R: int, n: int):
-    """Least time for one transform of [B, R, n] int64 residues: read x
+def _bytes_ntt(B: int, R: int, n: int) -> int:
+    """Bytes one transform of [B, R, n] int64 residues must move: read x
     once, write y once (8 bytes a word), read the per-limb twist and
-    twiddle tables once (4 bytes a word), against (n/2) log2 n butterflies
-    (12 32-bit ops: mont_mul 8, add_mod 2, sub_mod 2) + n twist products
-    (8 ops) per polynomial."""
+    twiddle tables once (4 bytes a word)."""
+    return 2 * 8 * B * R * n + 4 * R * (2 * n - 1 + 2)
+
+
+def _bound(B: int, R: int, n: int):
+    """Least time for one K1/K2 transform of [B, R, n]: the bytes above,
+    against (n/2) log2 n butterflies (12 32-bit ops: mont_mul 8, add_mod
+    2, sub_mod 2) + n twist products (8 ops) per polynomial."""
     logn = n.bit_length() - 1
-    nbytes = 2 * 8 * B * R * n + 4 * R * (2 * n - 1 + 2)
     ops = B * R * (12 * (n // 2) * logn + 8 * n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    t_bytes = _bytes_ntt(B, R, n) / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bound_fourstep(B: int, R: int, n: int, n1: int, n2: int):
+    """Least time for one four-step transform of [B, R, n]: K1's bytes at
+    the same shape, against n * (n1 + n2) modular multiply-adds per
+    polynomial, each 25 7-bit limb products on the int8 tensor cores (a
+    multiply-add counts as two operations)."""
+    ops = B * R * n * (n1 + n2) * 25 * 2
+    t_bytes = _bytes_ntt(B, R, n) / HBM_BYTES_PER_S
+    t_ops = ops / INT8_TC_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _residues(ntt, B, rows, gen):
+    import torch
+
+    idx = torch.tensor(rows, device="cuda")
+    x = torch.randint(0, 1 << 31, (B, len(rows), ntt.n), generator=gen,
+                      device="cuda", dtype=torch.int64)
+    return x % ntt.p[:, 0][idx][:, None]
+
+
+# (B, rows) as the main path gives them at level 3 with K=1:
+#   giant-chunk diagonal expansion [8, 46, 3, N]   -> (368, (0, 1, 2))
+#   digit extension to targets     [8, 3, 4, N]    -> (24, (0, 1, 2, 3))
+#   mod-down of the special limb   [45, 2, 1, N]   -> (90, (3,))
+#   plus a non-prefix subset                        -> (16, (0, 3))
+SHAPES = [(368, (0, 1, 2)), (24, (0, 1, 2, 3)), (90, (3,)), (16, (0, 3)),
+          (8, (0, 1, 2))]
+TIMED = {"ntt_fwd": (368, (0, 1, 2)), "ntt_inv": (90, (3,)),
+         "fourstep_fwd": (368, (0, 1, 2)), "fourstep_inv": (90, (3,))}
 
 
 def phase_kernels():
     import torch
 
-    from fhe_spear_tpu_torch.core import ntt_cuda
+    from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
+    from fhe_spear_tpu_torch.core.fourstep_cuda import fourstep_fwd, \
+        fourstep_inv
     from fhe_spear_tpu_torch.core.ntt import NttContext
     from fhe_spear_tpu_torch.core.primes import find_ntt_primes
+    from fhe_spear_tpu_torch.parallel.ntt_fourstep import FourStepBackend
 
     ctx = NttContext.build(N, find_ntt_primes(N, L, reserve_special=K),
                            device="cuda")
+    fsb = FourStepBackend(ctx)
+    fs = fsb.fs
+    log(f"  four-step split at N={N}: n1={fs.n1}, n2={fs.n2}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
-    p_all = ctx.p[:, 0]
+    err = dict.fromkeys(KERNELS, 0)
 
-    def residues(B, rows):
-        idx = torch.tensor(rows, device="cuda")
-        x = torch.randint(0, 1 << 31, (B, len(rows), N), generator=gen,
-                          device="cuda", dtype=torch.int64)
-        return x % p_all[idx][:, None]
+    def check(name, got, want):
+        e = int((got - want).abs().max())
+        err[name] = max(err[name], e)
+        return e
 
-    # (B, rows) as the main path gives them at level 3 with K=1:
-    #   giant-chunk diagonal expansion [8, 46, 3, N]   -> (368, (0, 1, 2))
-    #   digit extension to targets     [8, 3, 4, N]    -> (24, (0, 1, 2, 3))
-    #   mod-down of the special limb   [45, 2, 1, N]   -> (90, (3,))
-    #   plus a non-prefix subset                        -> (16, (0, 3))
-    shapes = [(368, (0, 1, 2)), (24, (0, 1, 2, 3)), (90, (3,)), (16, (0, 3)),
-              (8, (0, 1, 2))]
-    err = {"ntt_fwd": 0, "ntt_inv": 0}
-    for B, rows in shapes:
-        x = residues(B, rows)
+    for B, rows in SHAPES:
+        x = _residues(ctx, B, rows, gen)
         y = ctx.ntt(x, rows)
-        y_plain = ctx.ntt_plain(x, rows)
         back = ctx.intt(y, rows)
-        back_plain = ctx.intt_plain(y, rows)
-        torch.cuda.synchronize()
-        e_f = int((y - y_plain).abs().max())
-        e_i = int((back - back_plain).abs().max())
+        e_f = check("ntt_fwd", y, ctx.ntt_plain(x, rows))
+        e_i = check("ntt_inv", back, ctx.intt_plain(y, rows))
         rt = bool(torch.equal(back, x))
-        log(f"  K1/K2 [B={B}, R={len(rows)}, N={N}] rows={rows}: "
-            f"fwd max|err|={e_f} inv max|err|={e_i} round trip={rt}")
-        if e_f or e_i or not rt:
-            raise AssertionError(f"NTT kernel disagrees at B={B} rows={rows}")
-        err["ntt_fwd"] = max(err["ntt_fwd"], e_f)
-        err["ntt_inv"] = max(err["ntt_inv"], e_i)
+        z = fourstep_fwd(fs, x, rows)
+        zb = fourstep_inv(fs, z, rows)
+        e_3 = check("fourstep_fwd", z, fsb.ntt_plain(x, rows))
+        e_3i = check("fourstep_inv", zb, fsb.intt_plain(z, rows))
+        rt3 = bool(torch.equal(zb, x))
+        vs_k1 = bool(torch.equal(z.index_select(-1, fs.to_stockham), y))
+        torch.cuda.synchronize()
+        log(f"  [B={B}, R={len(rows)}, N={N}] rows={rows}: K1 max|err|={e_f} "
+            f"K2 max|err|={e_i} round trip={rt}; fourstep_fwd max|err|={e_3}"
+            f" fourstep_inv max|err|={e_3i} round trip={rt3} "
+            f"fwd[bitrev] == K1: {vs_k1}")
+        if e_f or e_i or e_3 or e_3i or not (rt and rt3 and vs_k1):
+            raise AssertionError(f"a kernel disagrees at B={B} rows={rows}")
 
-    timed = {"ntt_fwd": (368, (0, 1, 2)), "ntt_inv": (90, (3,))}
+    # one shape at N=16384 (n1 = 128), where two buffers need 128 KB of
+    # dynamic shared memory
+    n16 = 16384
+    ctx16 = NttContext.build(n16, find_ntt_primes(n16, L, reserve_special=K),
+                             device="cuda")
+    fsb16 = FourStepBackend(ctx16)
+    rows = (0, 1, 2)
+    x = _residues(ctx16, 8, rows, gen)
+    z = fourstep_fwd(fsb16.fs, x, rows)
+    zb = fourstep_inv(fsb16.fs, z, rows)
+    e_3 = check("fourstep_fwd", z, fsb16.ntt_plain(x, rows))
+    e_3i = check("fourstep_inv", zb, fsb16.intt_plain(z, rows))
+    rt3 = bool(torch.equal(zb, x))
+    torch.cuda.synchronize()
+    log(f"  [B=8, R=3, N={n16}] n1={fsb16.fs.n1} n2={fsb16.fs.n2}: "
+        f"fourstep_fwd max|err|={e_3} fourstep_inv max|err|={e_3i} "
+        f"round trip={rt3}")
+    if e_3 or e_3i or not rt3:
+        raise AssertionError("four-step kernels disagree at N=16384")
+    del ctx16, fsb16, x, z, zb
+
+    calls = {"ntt_fwd": (ctx.ntt, ctx.ntt_plain),
+             "ntt_inv": (ctx.intt, ctx.intt_plain),
+             "fourstep_fwd": (fsb.ntt, fsb.ntt_plain),
+             "fourstep_inv": (fsb.intt, fsb.intt_plain)}
     out = {}
-    for name, (B, rows) in timed.items():
-        x = residues(B, rows)
-        kern = ctx.ntt if name == "ntt_fwd" else ctx.intt
-        plain = ctx.ntt_plain if name == "ntt_fwd" else ctx.intt_plain
+    for name, (B, rows) in TIMED.items():
+        x = _residues(ctx, B, rows, gen)
+        kern, plain = calls[name]
         ms = _time_ms(lambda: kern(x, rows))
         plain_ms = _time_ms(lambda: plain(x, rows))
-        bound_ms, bound_by = _bound(B, len(rows), N)
+        if name.startswith("fourstep"):
+            bound_ms, bound_by = _bound_fourstep(B, len(rows), N, fs.n1,
+                                                 fs.n2)
+        else:
+            bound_ms, bound_by = _bound(B, len(rows), N)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "max_abs_err": err[name],
                      "shape": [B, len(rows), N]}
         log(f"  {name} [B={B}, R={len(rows)}, N={N}]: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     ntt_cuda.reset_counts()
+    fourstep_cuda.reset_counts()
+    torch.cuda.empty_cache()
     return out
 
 
-def phase_main_path():
+def _counts():
+    from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
+
+    return {"ntt_fwd": ntt_cuda.NTT_FWD.launches,
+            "ntt_inv": ntt_cuda.NTT_INV.launches,
+            "fourstep_fwd": fourstep_cuda.FOURSTEP_FWD.launches,
+            "fourstep_inv": fourstep_cuda.FOURSTEP_INV.launches}
+
+
+def _reset_counts():
+    from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
+
+    ntt_cuda.reset_counts()
+    fourstep_cuda.reset_counts()
+
+
+def _drive(tag, fn, corr_bar, must_launch=(), must_not_launch=()):
+    """Run one generation path with the counts set to 0 just before it and
+    read just after; check every token against its twin and the counts."""
     import torch
 
-    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
-    from fhe_spear_tpu_torch.core import ntt_cuda
-    from fhe_spear_tpu_torch.models.client_aided import run_generation
-    from fhe_spear_tpu_torch.models.rwkv7 import RwkvModel, make_random_model
-    from fhe_spear_tpu_torch.ops.bsgs import bsgs_dims
+    per_token = []
 
-    log(f"main path: client-aided RWKV-7 D={D} F={F} N={N} L={L} K={K} "
-        f"level {LEVEL}; depth cut to {BLOCKS} of the model's 24 blocks")
-    t0 = time.perf_counter()
-    model = make_random_model(d=D, f=F, n_blocks=BLOCKS, head_size=64,
-                              vocab=1000, seed=42)
-    log(f"  model: {time.perf_counter() - t0:.2f}s")
+    def on_log(msg):
+        log(f"  [{tag}] {msg}")
+        if msg.startswith("token "):
+            per_token.append(_counts())
 
-    t0 = time.perf_counter()
-    ctx = CkksContext(CkksParams(n=N, num_limbs=L, num_special=K), seed=0,
-                      device="cuda")
-    G, B = bsgs_dims(D)
-    ctx.ensure_galois(tuple(range(1, G)) + tuple(g * G for g in range(1, B)))
     torch.cuda.synchronize()
-    log(f"  keygen: {time.perf_counter() - t0:.2f}s "
-        f"({len(ctx.galois_keys)} Galois keys; "
-        f"{ctx.params.security_statement()})")
-
-    def run(tag, mdl, tokens, fused, stage_mode):
-        per_token = []
-
-        def on_log(msg):
-            log(f"  [{tag}] {msg}")
-            if msg.startswith("token "):
-                per_token.append({"ntt_fwd": ntt_cuda.NTT_FWD.launches,
-                                  "ntt_inv": ntt_cuda.NTT_INV.launches})
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ntt_cuda.reset_counts()
-        t0 = time.perf_counter()
-        results = run_generation(ctx, mdl, seed_tokens=SEED_TOKENS,
-                                 num_tokens=tokens, level=LEVEL, fused=fused,
-                                 log_fn=on_log, stage_mode=stage_mode)
-        torch.cuda.synchronize()
-        counts = {"ntt_fwd": ntt_cuda.NTT_FWD.launches,
-                  "ntt_inv": ntt_cuda.NTT_INV.launches}
-        prev = {"ntt_fwd": 0, "ntt_inv": 0}
-        for i, c in enumerate(per_token):
-            log(f"  [{tag}] launches token {i}: "
-                + " ".join(f"{k}={c[k] - prev[k]}" for k in c))
-            prev = c
-        log(f"  [{tag}] total {time.perf_counter() - t0:.2f}s, peak device "
-            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"launches {counts}")
-        for r in results:
-            if not r["match"] or not r["corr"] >= 0.9999:
-                raise AssertionError(f"{tag}: token off its plaintext twin: "
-                                     f"{results}")
-        for k, v in counts.items():
-            if v == 0:
-                raise AssertionError(f"{tag}: kernel {k} never launched")
-        return counts, results
-
-    counts, results = run("fused i32", model, 2, True, "i32")
-    log(f"  fused: steady token {results[-1]['sec']:.3f}s, "
-        f"min corr {min(r['corr'] for r in results):.6f}")
-    one = RwkvModel(blocks=model.blocks[:1], emb=model.emb,
-                    head_w=model.head_w, ln_out_w=model.ln_out_w,
-                    ln_out_b=model.ln_out_b, ln0_w=model.ln0_w,
-                    ln0_b=model.ln0_b)
-    _, res_x = run("explicit expanded, 1 block", one, 1, False, "expanded")
-    log(f"  explicit: token {res_x[0]['sec']:.3f}s corr "
-        f"{res_x[0]['corr']:.6f}")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = fn(on_log)
+    torch.cuda.synchronize()
+    counts = _counts()
+    prev = dict.fromkeys(KERNELS, 0)
+    for i, c in enumerate(per_token):
+        log(f"  [{tag}] launches token {i}: "
+            + " ".join(f"{k}={c[k] - prev[k]}" for k in KERNELS))
+        prev = c
+    log(f"  [{tag}] total {time.perf_counter() - t0:.2f}s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {counts}")
+    for r in results:
+        if not r["match"] or not r["corr"] >= corr_bar:
+            raise AssertionError(f"{tag}: token off its plaintext twin: "
+                                 f"{results}")
+    log(f"  [{tag}] tokens: " + ", ".join(f"{r['sec']:.3f}s" for r in results)
+        + f"; min corr {min(r['corr'] for r in results):.6f}")
+    for k in must_launch:
+        if counts[k] == 0:
+            raise AssertionError(f"{tag}: kernel {k} never launched")
+    for k in must_not_launch:
+        if counts[k] != 0:
+            raise AssertionError(f"{tag}: kernel {k} launched {counts[k]} "
+                                 "times on a path that must not run it")
     return counts
 
 
-def main():
+def _context(backend):
+    import torch
+
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.ops.bsgs import bsgs_dims
+
+    t0 = time.perf_counter()
+    ctx = CkksContext(CkksParams(n=N, num_limbs=L, num_special=K,
+                                 ntt_backend=backend), seed=0, device=DEVICE)
+    G, B = bsgs_dims(D)
+    ctx.ensure_galois(tuple(range(1, G)) + tuple(g * G for g in range(1, B)))
+    torch.cuda.synchronize()
+    log(f"  keygen ({backend}): {time.perf_counter() - t0:.2f}s "
+        f"({len(ctx.galois_keys)} Galois keys; "
+        f"{ctx.params.security_statement()})")
+    return ctx
+
+
+def _one_block(model):
+    from fhe_spear_tpu_torch.models.rwkv7 import RwkvModel
+
+    return RwkvModel(blocks=model.blocks[:1], emb=model.emb,
+                     head_w=model.head_w, ln_out_w=model.ln_out_w,
+                     ln_out_b=model.ln_out_b, ln0_w=model.ln0_w,
+                     ln0_b=model.ln0_b)
+
+
+def phase_paths():
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.models.client_aided import run_generation, \
+        run_generation_batched
+    from fhe_spear_tpu_torch.models.device_client import DeviceTokenRunner, \
+        run_generation_device
+    from fhe_spear_tpu_torch.models.rwkv7 import generate_token_plaintext, \
+        make_random_model
+
+    log(f"paths: client-aided RWKV-7 D={D} F={F} N={N} L={L} K={K} "
+        f"level {LEVEL}; depth cut to {BLOCKS} of the model's 24 blocks")
+    t0 = time.perf_counter()
+    model = make_random_model(d=D, f=F, n_blocks=BLOCKS, head_size=HEAD_SIZE,
+                              vocab=1000, seed=42)
+    one = _one_block(model)
+    log(f"  model: {time.perf_counter() - t0:.2f}s")
+    ctx = _context("stockham")
+    counts = {}
+
+    counts["classic"] = _drive(
+        "classic fused i32", lambda lg: run_generation(
+            ctx, model, seed_tokens=SEED_TOKENS, num_tokens=2, level=LEVEL,
+            fused=True, log_fn=lg, stage_mode="i32"),
+        CORR_CLASSIC, must_launch=("ntt_fwd", "ntt_inv"))
+    _drive("classic explicit expanded, 1 block", lambda lg: run_generation(
+        ctx, one, seed_tokens=SEED_TOKENS, num_tokens=1, level=LEVEL,
+        fused=False, log_fn=lg, stage_mode="expanded"),
+        CORR_CLASSIC, must_launch=("ntt_fwd", "ntt_inv"))
+    torch.cuda.empty_cache()
+
+    counts["device_stockham"] = _drive(
+        "device client stockham", lambda lg: run_generation_device(
+            ctx, model, seed_tokens=SEED_TOKENS, num_tokens=2, level=LEVEL,
+            cache_dir=str(PREENC_CACHE), log_fn=lg),
+        CORR_DEVICE, must_launch=("ntt_fwd", "ntt_inv"),
+        must_not_launch=("fourstep_fwd", "fourstep_inv"))
+
+    # streams on the stockham context, 1 block
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = DeviceTokenRunner(ctx, one, level=LEVEL,
+                               cache_dir=str(PREENC_CACHE))
+    log(f"  [device streams] runner init {time.perf_counter() - t0:.2f}s")
+    _reset_counts()
+    toks = [3, 17, 42, 99]
+    t0 = time.perf_counter()
+    logits, news = runner.generate_tokens_streams(
+        toks, [one.zero_state() for _ in toks])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    corrs = []
+    for s, t in enumerate(toks):
+        lref, _ = generate_token_plaintext(one, t, one.zero_state())
+        corrs.append(float(np.corrcoef(logits[s], lref)[0, 1]))
+        if int(np.argmax(logits[s])) != int(np.argmax(lref)) \
+                or not corrs[-1] >= CORR_DEVICE:
+            raise AssertionError(f"device streams: stream {s} off its twin "
+                                 f"(corr {corrs[-1]})")
+    log(f"  [device streams, 4 on 1 block] step {dt:.3f}s, every stream "
+        f"matches; min corr {min(corrs):.6f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{_counts()}")
+    del runner
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = run_generation_batched(ctx, one, None, num_tokens=1, streams=2,
+                                 level=LEVEL, verbose=False,
+                                 log_fn=lambda m: log(f"  [batched] {m}"),
+                                 stage_mode="i32")
+    if any(r["match"] != r["streams"] for r in res):
+        raise AssertionError(f"batched: a stream is off its twin: {res}")
+    log(f"  [batched, 2 streams on 1 block] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{_counts()}")
+    del ctx
+    torch.cuda.empty_cache()
+
+    ctx_mxu = _context("mxu")
+    counts["device_mxu"] = _drive(
+        "device client mxu", lambda lg: run_generation_device(
+            ctx_mxu, model, seed_tokens=SEED_TOKENS, num_tokens=2,
+            level=LEVEL, cache_dir=str(PREENC_CACHE), log_fn=lg),
+        CORR_DEVICE, must_launch=("fourstep_fwd", "fourstep_inv"),
+        must_not_launch=("ntt_fwd", "ntt_inv"))
+    return counts
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
     phase_device()
     import torch
 
     phase_build()
-    log("kernels: K1/K2 against their plain torch versions")
+    log("kernels: K1/K2 and fourstep_fwd/fourstep_inv against their plain "
+        "torch versions")
     timing = phase_kernels()
-    counts = phase_main_path()
+    if "--kernels-only" in argv:
+        log(json.dumps({"kernel_timing": timing}))
+        return
+    counts = phase_paths()
+    # launches: K1/K2 from the first slice's path (classic fused
+    # transport), the four-step pair from this slice's (device client on
+    # the mxu backend); every phase's counts are in launches_by_path
+    main_path = {"ntt_fwd": "classic", "ntt_inv": "classic",
+                 "fourstep_fwd": "device_mxu", "fourstep_inv": "device_mxu"}
+    replaces = {
+        "ntt_fwd": ("fhe_spear_tpu_torch/csrc/ntt.cu",
+                    "fhe_spear_tpu/core/ntt_pallas.py:144"),
+        "ntt_inv": ("fhe_spear_tpu_torch/csrc/ntt.cu",
+                    "fhe_spear_tpu/core/ntt_pallas.py:199"),
+        "fourstep_fwd": ("fhe_spear_tpu_torch/csrc/fourstep.cu",
+                         "fhe_spear_tpu/core/fourstep_pallas.py:137"),
+        "fourstep_inv": ("fhe_spear_tpu_torch/csrc/fourstep.cu",
+                         "fhe_spear_tpu/parallel/ntt_fourstep.py:268"),
+    }
     kernels = []
-    for name, line in (("ntt_fwd", 144), ("ntt_inv", 199)):
+    for name in KERNELS:
         t = timing[name]
+        src, rep = replaces[name]
         kernels.append({
             "name": name, "status": "ported; bitwise equal to plain",
-            "route": "cuda",
-            "source": "fhe_spear_tpu_torch/csrc/ntt.cu",
-            "replaces": f"fhe_spear_tpu/core/ntt_pallas.py:{line}",
-            "launches": counts[name], "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "shape": t["shape"]})
+            "route": "cuda", "source": src, "replaces": rep,
+            "launches": counts[main_path[name]][name],
+            "launches_by_path": {p: c[name] for p, c in counts.items()},
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": t["shape"]})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

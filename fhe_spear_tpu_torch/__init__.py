@@ -23,8 +23,13 @@ reader can find each module's twin.  Rules of the port:
     (`csrc/`), with its plain torch version beside it: a CUDA tensor
     launches the kernel, a CPU tensor runs the plain version.
 
-Ported so far: the client-aided RWKV-7 generation path
-(`models.client_aided.run_generation`, `python -m fhe_spear_tpu_torch
-generate`), with the forward and inverse NTT as CUDA kernels
-(`csrc/ntt.cu`, wrapped by `core/ntt_cuda.py`).
+Ported so far: client-aided RWKV-7 generation on the classic transport
+(`models.client_aided.run_generation`, its batched streams variant
+`run_generation_batched`, `python -m fhe_spear_tpu_torch generate`) and
+on the device-resident client (`models.device_client`), the benchmarks
+`python -m fhe_spear_tpu_torch.bench` / `.bench_streams`, and both NTT
+backends: the bit-reversed Stockham transform (CUDA kernels in
+`csrc/ntt.cu`, wrapped by `core/ntt_cuda.py`) and the natural-order
+four-step transform of `ntt_backend="mxu"` (`parallel/ntt_fourstep.py`,
+CUDA kernels in `csrc/fourstep.cu`, wrapped by `core/fourstep_cuda.py`).
 """

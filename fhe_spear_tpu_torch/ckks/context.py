@@ -36,7 +36,7 @@ once (`% p`), which gives the same canonical word as the reference's
 chains of modular adds.
 
 Left out until a later slice: dnum > 1 grouped digits, `drop_galois_keys`,
-`identity_ksk`, `shard_eval_keys`, the four-step ("mxu") NTT backend.
+`identity_ksk`, `shard_eval_keys`.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from ..core.modops import (
 )
 from ..core.ntt import NttContext, require_device
 from ..core.primes import Prime, find_ntt_primes
+from ..parallel.ntt_fourstep import FourStepBackend
 from .ciphertext import Ciphertext, Plaintext
 from .encoding import SlotEncoder
 
@@ -71,8 +72,10 @@ class CkksParams:
     secret_hamming_weight: sparse ternary secret weight; None = dense.
     dnum:         digit count; only None (one digit per limb) is ported.
     ntt_backend:  "stockham" or "pallas" -- in the port both name the same
-                  bit-reversed transform, run by the CUDA kernels on the
-                  card.  "mxu" (four-step, natural order) is not ported.
+                  bit-reversed transform, run by kernels K1/K2 on the card;
+                  "mxu": the four-step transform in natural bin order
+                  (`parallel/ntt_fourstep.FourStepBackend`), run by kernels
+                  fourstep_fwd/fourstep_inv on the card.
     """
 
     n: int
@@ -171,10 +174,7 @@ class CkksContext:
         NOT confidential.  sk_coeff restores a saved secret key; the
         relinearization key is regenerated from it.  device: "cuda" (the
         default) or "cpu"; "cuda" without a card raises."""
-        if params.ntt_backend == "mxu":
-            raise NotImplementedError(
-                "ntt_backend='mxu' (four-step NTT) is not ported yet")
-        if params.ntt_backend not in ("stockham", "pallas"):
+        if params.ntt_backend not in ("stockham", "pallas", "mxu"):
             raise ValueError(f"unknown ntt_backend {params.ntt_backend!r}")
         self.device = require_device(device)
         self.params = params
@@ -188,6 +188,8 @@ class CkksContext:
             params.num_special,
         )
         self.ntt = NttContext.build(params.n, self.primes, self.device)
+        if params.ntt_backend == "mxu":
+            self.ntt = FourStepBackend(self.ntt)
         self.encoder = SlotEncoder(params.n)
         if seed is None:
             ss = np.random.SeedSequence(

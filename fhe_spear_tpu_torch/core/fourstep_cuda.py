@@ -1,0 +1,128 @@
+"""Wrappers of the hand-written CUDA four-step NTT kernels (csrc/fourstep.cu).
+
+`fourstep_fwd` (K3) replaces `fhe_spear_tpu/core/fourstep_pallas.py`'s
+three variants of one function: `ntt_fourstep_pallas` (K3a),
+`_ntt_fourstep_pallas_2d` (K3b) and `_ntt_fourstep_pallas_2dio` (K3c).
+`fourstep_inv` is the port's kernel for `FourStepNtt.intt_mxu_b`, which the
+reference left to XLA.  Their plain versions are `FourStepNtt.ntt_mxu_b` /
+`intt_mxu_b` (`parallel/ntt_fourstep.py`); `FourStepBackend.ntt` / `intt`
+pick the kernel for a CUDA tensor and the plain version for a CPU tensor.
+
+The source is built and loaded like `core/ntt_cuda.py`'s (nvcc for sm_90a
+into `build/`, keyed on a hash of the source, plain C interface through
+ctypes), by the same helper.  Nothing is imported or built when this module
+is imported.
+
+I/O: x is an int64 tensor [..., R, N] on a CUDA device, contiguous, with
+canonical residues in [0, p) (Montgomery form); limb r of the R axis lives
+in prime domain rows[r].  The output is a new int64 tensor of the same
+shape, in natural four-step bin order (k = k2*n1 + k1) for the forward
+transform.  N = n1 * n2 with both powers of two, 128 <= N <= 16384.  There
+is no fallback: a tensor the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .ntt_cuda import CudaLibrary, KernelStats, _rows
+
+__all__ = ["FOURSTEP_FWD", "FOURSTEP_INV", "fourstep_fwd", "fourstep_inv",
+           "build", "reset_counts", "SOURCE", "MIN_N", "MAX_N", "LIBRARY"]
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fourstep.cu"
+MIN_N, MAX_N = 128, 16384
+
+FOURSTEP_FWD = KernelStats("fourstep_fwd")
+FOURSTEP_INV = KernelStats("fourstep_inv")
+
+
+def reset_counts() -> None:
+    FOURSTEP_FWD.reset()
+    FOURSTEP_INV.reset()
+
+
+def _bind(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.fhe_fourstep_fwd, lib.fhe_fourstep_inv):
+        fn.restype = ci
+        fn.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, ci, ci,
+                       vp, vp, vp, vp, vp, vp, vp]
+
+
+LIBRARY = CudaLibrary(SOURCE, "fhe_fourstep", _bind)
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the four-step library."""
+    return LIBRARY.build()
+
+
+def _tables(fs, device: torch.device) -> dict:
+    """uint32 words of a FourStepNtt's tables on the device (built once per
+    FourStepNtt): psi / psi_inv_n [L, N], w1 / w1i [L, n1, n1], w2 / w2i
+    [L, n2, n2], tw [L, n1, n2], twi [L, n2, n1], p / pinv [L]."""
+    tb = fs.kernel_tables
+    if tb is None or tb["device"] != device:
+        def u32(t):
+            return t.to(device=device, dtype=torch.int32).contiguous()
+
+        base = fs.base
+        # residues (< 2^31) keep their bits in int32; pinv may reach 2^32,
+        # so it is stored as its two's-complement int32 word
+        pinv = base.pinv[:, 0]
+        tb = {"device": device,
+              "psi": u32(base.psi), "psi_inv_n": u32(base.psi_inv_n),
+              "w1": u32(fs.w1), "w2": u32(fs.w2), "tw": u32(fs.tw),
+              "w1i": u32(fs.w1i), "w2i": u32(fs.w2i), "twi": u32(fs.twi),
+              "p": u32(base.p[:, 0]), "pinv": u32(pinv - ((pinv >> 31) << 32)),
+              "rows": {}}
+        fs.kernel_tables = tb
+    return tb
+
+
+def _launch(stats: KernelStats, fn_name: str, names: tuple, fs, x, rows):
+    if not isinstance(x, torch.Tensor) or not x.is_cuda:
+        raise ValueError(f"{stats.name}: x must be a CUDA tensor")
+    if x.dtype != torch.int64:
+        raise TypeError(f"{stats.name}: x must be int64, got {x.dtype}")
+    if x.dim() < 2 or not x.is_contiguous():
+        raise ValueError(f"{stats.name}: x must be a contiguous [..., R, N] "
+                         "tensor")
+    R, n = x.shape[-2:]
+    if n != fs.base.n or not MIN_N <= n <= MAX_N:
+        raise ValueError(f"{stats.name}: N={n} unsupported (transform N="
+                         f"{fs.base.n}, kernel takes {MIN_N} <= N <= {MAX_N})")
+    lib = build()
+    tb = _tables(fs, x.device)
+    rows_t = _rows(tb, rows, R, len(fs.base.primes))
+    B = x.numel() // (R * n)
+    y = torch.empty_like(x)
+    if B == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(lib, fn_name)(
+        x.data_ptr(), y.data_ptr(), rows_t.data_ptr(), R, B, fs.n1, fs.n2,
+        *(tb[k].data_ptr() for k in names), tb["p"].data_ptr(),
+        tb["pinv"].data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{stats.name}: kernel launch failed, "
+                           f"cudaGetLastError() = {rc}")
+    stats.launches += 1
+    return y
+
+
+def fourstep_fwd(fs, x: torch.Tensor, rows=None) -> torch.Tensor:
+    """Kernel K3: forward four-step NTT of x [..., R, N] in natural bin
+    order, bitwise equal to fs.ntt_mxu_b (fs: a FourStepNtt)."""
+    return _launch(FOURSTEP_FWD, "fhe_fourstep_fwd", ("psi", "w1", "tw", "w2"),
+                   fs, x, rows)
+
+
+def fourstep_inv(fs, x: torch.Tensor, rows=None) -> torch.Tensor:
+    """Inverse four-step NTT, bitwise equal to fs.intt_mxu_b."""
+    return _launch(FOURSTEP_INV, "fhe_fourstep_inv",
+                   ("psi_inv_n", "w2i", "twi", "w1i"), fs, x, rows)

@@ -31,16 +31,12 @@ from pathlib import Path
 import torch
 
 __all__ = ["NTT_FWD", "NTT_INV", "ntt_fwd", "ntt_inv", "build", "reset_counts",
-           "SOURCE", "MAX_N"]
+           "SOURCE", "MAX_N", "CudaLibrary", "KernelStats", "LIBRARY"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "ntt.cu"
 BUILD_DIR = _PKG.parent / "build"
 MAX_N = 8192
-_lock = threading.Lock()
-_lib = None
-build_seconds = None
-build_log = ""
 
 
 class KernelStats:
@@ -74,43 +70,66 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA NTT kernels need the CUDA "
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                        "toolkit (set CUDA_HOME)")
 
 
+class CudaLibrary:
+    """One `.cu` source with a plain C interface, compiled with nvcc for
+    sm_90a into `build/lib<stem>-<source hash>.so` at first use and loaded
+    with ctypes.  `bind(lib)` sets the argument types of its functions.
+    `seconds` and `log` hold the build's time and nvcc's output."""
+
+    def __init__(self, source: Path, stem: str, bind):
+        self.source, self.stem, self.bind = source, stem, bind
+        self.lib = None
+        self.seconds = None
+        self.log = ""
+        self._lock = threading.Lock()
+
+    def build(self) -> ctypes.CDLL:
+        """Compile (once per source hash) and load the library."""
+        with self._lock:
+            if self.lib is not None:
+                return self.lib
+            t0 = time.perf_counter()
+            tag = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            so = BUILD_DIR / f"lib{self.stem}-{tag}.so"
+            if not so.exists():
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                       "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                       "-Xptxas", "-v", "-o", tmp, str(self.source)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                self.log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(f"nvcc failed on {self.source.name} "
+                                       f"({proc.returncode}):\n{self.log}")
+                os.replace(tmp, so)
+            lib = ctypes.CDLL(str(so))
+            self.bind(lib)
+            self.lib = lib
+            self.seconds = time.perf_counter() - t0
+            return lib
+
+
+def _bind(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.fhe_ntt_fwd, lib.fhe_ntt_inv):
+        fn.restype = ci
+        fn.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, ci,
+                       vp, vp, vp, vp, vp]
+
+
+LIBRARY = CudaLibrary(SOURCE, "fhe_ntt", _bind)
+
+
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _lib, build_seconds, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        t0 = time.perf_counter()
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"libfhe_ntt-{tag}.so"
-        if not so.exists():
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.fhe_ntt_fwd, lib.fhe_ntt_inv):
-            fn.restype = ci
-            fn.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, ci,
-                           vp, vp, vp, vp, vp]
-        _lib = lib
-        build_seconds = time.perf_counter() - t0
-        return lib
+    """Compile (once per source hash) and load the NTT kernel library."""
+    return LIBRARY.build()
 
 
 def _tables(ctx, device: torch.device) -> dict:

@@ -1,9 +1,12 @@
 """Where one client-aided token's time goes on the card.
 
     python -m fhe_spear_tpu_torch.profile_token [--blocks 2] [--top 15]
+        [--transport {classic,device}] [--ntt-backend {stockham,mxu}]
 
 Builds the chip_smoke configuration (D=2048, F=8192, N=8192, L=3, K=1,
-level 3, fused transport, i32 staging), runs one warm-up token, then
+level 3) on the chosen transport -- classic: `FheRwkvClient` on the fused
+transport with i32 staging; device: the device-resident client
+`DeviceTokenRunner` -- and NTT backend, runs one warm-up token, then
 traces one steady token with torch.profiler and prints: the token's wall
 time, the device's busy time and idle share over that window, and the
 device time by kernel name (largest first).  Needs a card.
@@ -19,6 +22,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="fhe_spear_tpu_torch.profile_token")
     ap.add_argument("--blocks", type=int, default=2)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--transport", choices=("classic", "device"),
+                    default="classic")
+    ap.add_argument("--ntt-backend", choices=("stockham", "mxu"),
+                    default="stockham")
     args = ap.parse_args(argv)
 
     import torch
@@ -26,24 +33,32 @@ def main(argv=None):
 
     from .ckks import CkksContext, CkksParams
     from .models.client_aided import FheRwkvClient, FheRwkvServer
+    from .models.device_client import DeviceTokenRunner
     from .models.rwkv7 import generate_token_plaintext, make_random_model
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_token: needs a CUDA card")
     model = make_random_model(d=2048, f=8192, n_blocks=args.blocks,
                               head_size=64, vocab=1000, seed=42)
-    ctx = CkksContext(CkksParams(n=8192, num_limbs=3, num_special=1), seed=0)
-    server = FheRwkvServer(ctx, model, level=3, stage_mode="i32")
-    client = FheRwkvClient(ctx, model, server)
+    ctx = CkksContext(CkksParams(n=8192, num_limbs=3, num_special=1,
+                                 ntt_backend=args.ntt_backend), seed=0)
+    if args.transport == "device":
+        runner = DeviceTokenRunner(ctx, model, level=3)
+
+        def token(tok, st):          # the device client has no host phases
+            return runner.generate_token(tok, st) + ([],)
+    else:
+        server = FheRwkvServer(ctx, model, level=3, stage_mode="i32")
+        token = FheRwkvClient(ctx, model, server).generate_token
     state = model.zero_state()
     _, state = generate_token_plaintext(model, 5, state)
-    _, state, _ = client.generate_token(11, state)          # warm-up
+    _, state, _ = token(11, state)                          # warm-up
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, state, timings = client.generate_token(2, state)
+        _, state, timings = token(2, state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -66,7 +81,8 @@ def main(argv=None):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     total_dev = sum(t for t, _ in by_name.values())
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; transport "
+          f"{args.transport}, ntt backend {args.ntt_backend}")
     print(f"token wall {wall * 1e3:.1f} ms over {args.blocks} blocks; device "
           f"busy {busy_us / 1e3:.1f} ms, idle share "
           f"{1 - busy_us / 1e3 / (wall * 1e3):.3f}; "
@@ -75,8 +91,9 @@ def main(argv=None):
     for bt in timings:
         for k, v in bt.items():
             agg[k] = agg.get(k, 0.0) + v
-    print("host phases (s): " + " ".join(f"{k}={v:.4f}"
-                                         for k, v in sorted(agg.items())))
+    if agg:
+        print("host phases (s): " + " ".join(f"{k}={v:.4f}"
+                                             for k, v in sorted(agg.items())))
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                )[: args.top]:

@@ -1,7 +1,8 @@
 """The port's CkksContext against the JAX package's, bitwise, at n=256:
 keys (secret, relin, >16 Galois elements so the chunk-of-16 draw order is
 exercised), explicit encryption with host randomness, rotate,
-hoisted_rotations, multiply + relin and rescale."""
+hoisted_rotations, multiply + relin and rescale.  The four-step ("mxu")
+backend's words are held in tests/test_torch_ckks_mxu.py."""
 
 import numpy as np
 import pytest
@@ -129,8 +130,17 @@ def test_params_and_backends():
     assert p.security_statement().startswith("standard-128")
     assert CkksParams.deep(8192, 58).security_statement().startswith(
         "research-grade")
-    with pytest.raises(NotImplementedError):
-        CkksContext(CkksParams(n=128, num_limbs=2, ntt_backend="mxu"),
+    # the four-step backend: natural bin order, the same keys in the
+    # coefficient domain (the secret key's coefficients)
+    m = CkksContext(CkksParams(n=128, num_limbs=2, ntt_backend="mxu"),
+                    seed=0, device="cpu")
+    assert m.ntt.order == "natural"
+    s = CkksContext(CkksParams(n=128, num_limbs=2), seed=0, device="cpu")
+    np.testing.assert_array_equal(m._sk_coeff, s._sk_coeff)
+    v = np.random.RandomState(2).uniform(-1, 1, 64)
+    np.testing.assert_allclose(m.decrypt_vec(m.encrypt(v)), v, atol=1e-4)
+    with pytest.raises(ValueError):
+        CkksContext(CkksParams(n=128, num_limbs=2, ntt_backend="fft"),
                     seed=0, device="cpu")
     a = CkksContext(CkksParams(n=128, num_limbs=2, ntt_backend="pallas"),
                     seed=3, device="cpu")

@@ -9,7 +9,7 @@ at n=256.
     shifts a slot by about 2^-28);
   * fused transport (device-side randomness, so not bitwise): tokens equal
     the plaintext twin with logit correlation > 0.9999, in both stage
-    modes;
+    modes, and every stream of `run_generation_batched` its own twin;
   * model_from_reference round-trips every field.
 """
 
@@ -105,6 +105,18 @@ def test_fused_tokens_match_plaintext(model, stage_mode):
     for r in results:
         assert r["match"], results
         assert r["corr"] > 0.9999, results
+
+
+def test_batched_streams_match_plaintext(model):
+    """run_generation_batched: 2 streams through one fused transport (one
+    call per round trip for both), each token-exact against its own
+    plaintext twin."""
+    results = port_ca.run_generation_batched(
+        _port_ctx(31), model, None, num_tokens=2, streams=2, level=3,
+        verbose=False, stage_mode="i32")
+    assert len(results) == 2
+    for r in results:
+        assert r["match"] == r["streams"] == 2, results
 
 
 def test_chunk_pairs():

@@ -1,0 +1,102 @@
+"""The port's device-resident client against the JAX package's, at the
+tests/test_device_client.py model (d=32, f=128, head 16, vocab 64, n=256).
+
+  * The runner's server stacks (int32 diagonal encodings / PRESCALE) equal
+    the reference runner's word for word, its client weight stacks in
+    float32, and both draw the same base seed after the same rotation
+    keys.  (The reference runner is only constructed: its jitted token
+    scan is not compiled here.)
+  * `_encode_dev` agrees with the reference's on the same slots to a few
+    float32 ulps at the coefficients' magnitude, and so does each with the
+    exact float64 encoder: coefficients reach 2^26 at the scale 2^28, where
+    float32 values are 4 units apart, so the two complex64 FFTs (torch's,
+    XLA's) cannot agree to the unit.
+  * Tokens match the plaintext twin with logit correlation > 0.999 on the
+    stockham and the four-step ("mxu") contexts, and every stream of
+    `generate_tokens_streams` matches its own twin (the reference test's
+    assertions).  The device randomness is a torch.Generator, not
+    threefry, so tokens are compared, not ciphertext words.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fhe_spear_tpu.ckks import CkksContext as RefContext
+from fhe_spear_tpu.ckks import CkksParams as RefParams
+from fhe_spear_tpu.models import device_client as ref_dc
+from fhe_spear_tpu.models import rwkv7 as ref_rwkv
+from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+from fhe_spear_tpu_torch.convert import model_from_reference
+from fhe_spear_tpu_torch.models import device_client as port_dc
+from fhe_spear_tpu_torch.models.rwkv7 import generate_token_plaintext, \
+    make_random_model
+
+
+def _port_ctx(backend="stockham", seed=61):
+    return CkksContext(CkksParams(n=256, num_limbs=3, num_special=1,
+                                  ntt_backend=backend), seed=seed,
+                       device="cpu")
+
+
+def test_runner_stacks_and_encode_match_reference():
+    ref_model = ref_rwkv.make_random_model(d=32, f=128, n_blocks=2,
+                                           head_size=16, vocab=64, seed=9)
+    ref = RefContext(RefParams(n=256, num_limbs=3, num_special=1), seed=61)
+    rr = ref_dc.DeviceTokenRunner(ref, ref_model, level=3)
+    pr = port_dc.DeviceTokenRunner(_port_ctx(), model_from_reference(
+        ref_model), level=3)
+    assert rr._seed == pr._seed
+    for k in ("rkv", "o", "fk", "fv"):
+        np.testing.assert_array_equal(np.asarray(rr.pt[k]),
+                                      pr.pt[k].numpy())
+    assert list(rr.cw) == list(pr.cw)
+    for k in rr.cw:
+        np.testing.assert_array_equal(np.asarray(rr.cw[k]), pr.cw[k].numpy())
+
+    rng = np.random.default_rng(4)
+    z = (rng.uniform(-1, 1, (3, 128))
+         + 1j * rng.uniform(-1, 1, (3, 128))).astype(np.complex64)
+    want = np.asarray(rr._encode_dev(jnp.asarray(z))).astype(np.int64)
+    got = pr._encode_dev(torch.as_tensor(z)).numpy().astype(np.int64)
+    exact = pr.ctx.encoder.encode(z.astype(np.complex128), pr.ctx.scale)
+    # float32 values near the largest coefficient are `ulp` apart, so both
+    # float32 FFT encodes sit a few ulps from the exact (float64) one
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(exact).max())) - 23)
+    assert np.abs(got - exact).max() <= 4 * ulp
+    assert np.abs(got - want).max() <= 4 * ulp
+    np.testing.assert_allclose(
+        pr._decode_dev(torch.as_tensor(got, dtype=torch.float32)
+                       / np.float32(pr.ctx.scale)).numpy(), z, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["stockham", "mxu"])
+def test_device_client_token_exact(backend):
+    model = make_random_model(d=32, f=128, n_blocks=3, head_size=16,
+                              vocab=64, seed=9)
+    results = port_dc.run_generation_device(
+        _port_ctx(backend), model, seed_tokens=[5, 11, 2], num_tokens=3)
+    assert len(results) == 3
+    for r in results:
+        assert r["match"], results
+        assert r["corr"] > 0.999, results
+
+
+def test_device_client_streams():
+    """Multi-stream token step: each stream token-exact against its own
+    plaintext twin, all streams advanced by one call."""
+    model = make_random_model(d=32, f=128, n_blocks=2, head_size=16,
+                              vocab=64, seed=10)
+    ctx = _port_ctx()
+    runner = port_dc.DeviceTokenRunner(ctx, model, level=ctx.L)
+    toks = [3, 17, 42]
+    states = [model.zero_state() for _ in toks]
+    logits, news = runner.generate_tokens_streams(toks, states)
+    for s, t in enumerate(toks):
+        lref, sref = generate_token_plaintext(model, t, model.zero_state())
+        assert int(np.argmax(logits[s])) == int(np.argmax(lref)), s
+        corr = float(np.corrcoef(logits[s], lref)[0, 1])
+        assert corr > 0.999, (s, corr)
+        np.testing.assert_allclose(np.stack(news[s].wkv),
+                                   np.stack(sref.wkv), atol=1e-3)

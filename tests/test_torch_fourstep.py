@@ -1,0 +1,140 @@
+"""The port's four-step NTT against the JAX package's, bitwise: the
+mont_mul-tree `FourStepNtt.ntt` and its Stockham-order view, the limb
+contractions `ntt_mxu_b` / `intt_mxu_b` (the plain versions of the CUDA
+kernels fourstep_fwd / fourstep_inv), the Pallas four-step kernel in
+interpret mode, the round trip and `FourStepBackend.autoperm`, at n=256
+with splits (16, 16) and (8, 32) and at n=1024 with the backend's default
+split, on rows (0, 1, 2) and (for the limb contractions) the (0, 2)
+subset.  The CUDA kernels against the plain versions run in the
+`cuda`-marked test (and in chip_smoke.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fhe_spear_tpu.core import ntt as ref_ntt
+from fhe_spear_tpu.core.fourstep_pallas import ntt_fourstep_pallas
+from fhe_spear_tpu.core.primes import find_ntt_primes as ref_primes
+from fhe_spear_tpu.parallel import ntt_fourstep as ref_fs
+from fhe_spear_tpu_torch.core import fourstep_cuda
+from fhe_spear_tpu_torch.core import ntt as port_ntt
+from fhe_spear_tpu_torch.core.primes import find_ntt_primes
+from fhe_spear_tpu_torch.parallel.ntt_fourstep import FourStepBackend, \
+    FourStepNtt
+
+L = 3
+
+
+def _contexts(n):
+    return (port_ntt.NttContext.build(n, find_ntt_primes(n, L), device="cpu"),
+            ref_ntt.NttContext.build(n, ref_primes(n, L)))
+
+
+def _residues(primes, rows, shape, seed=0):
+    """Canonical residues [R, *shape] (row r mod primes[rows[r]])."""
+    rng = np.random.default_rng(seed)
+    p = np.array([primes[r].p for r in rows], dtype=np.int64)
+    return rng.integers(0, p.reshape((-1,) + (1,) * len(shape)),
+                        size=(len(rows),) + shape, dtype=np.int64)
+
+
+def _u32(x):
+    return jnp.asarray(np.asarray(x).astype(np.uint32))
+
+
+def _words(x):
+    return np.asarray(x).astype(np.int64)
+
+
+@pytest.mark.parametrize("n,n1", [(256, 16), (256, 8), (1024, None)])
+@pytest.mark.parametrize("rows", [(0, 1, 2), (0, 2)])
+def test_fourstep_bitwise_against_reference(n, n1, rows):
+    pctx, rctx = _contexts(n)
+    backend = FourStepBackend(pctx, n1)
+    fs = backend.fs
+    if n1 is None:             # the backend's default split rule
+        assert (fs.n1, fs.n2) == (16, 64)
+    rfs = ref_fs.FourStepNtt(rctx, fs.n1, fs.n2)
+    x = _residues(pctx.primes, rows, (2, n), seed=n + len(rows))  # [R, B, N]
+
+    got = fs.ntt_mxu_b(torch.as_tensor(x), rows).numpy()
+    np.testing.assert_array_equal(got, _words(rfs.ntt_mxu_b(_u32(x), rows)))
+    back = fs.intt_mxu_b(torch.as_tensor(got), rows).numpy()
+    np.testing.assert_array_equal(back, _words(rfs.intt_mxu_b(_u32(got),
+                                                              rows)))
+    np.testing.assert_array_equal(back, x)
+
+    if len(rows) < L:
+        return                  # the tree form is held on all rows below
+    x0 = x[:, 0]                                                  # [R, N]
+    tree = fs.ntt(torch.as_tensor(x0), rows).numpy()
+    np.testing.assert_array_equal(tree, _words(rfs.ntt(_u32(x0), rows)))
+    np.testing.assert_array_equal(tree, got[:, 0])
+    stock = fs.ntt_stockham_order(torch.as_tensor(x0), rows).numpy()
+    np.testing.assert_array_equal(
+        stock, _words(rfs.ntt_stockham_order(_u32(x0), rows)))
+    # the order contract: four-step bin bitrev(b) is Stockham bin b
+    np.testing.assert_array_equal(
+        stock, pctx.ntt(torch.as_tensor(x0), rows).numpy())
+
+
+def test_fourstep_matches_pallas_kernel():
+    """The plain version equals the Pallas kernel (interpret mode, f32 limb
+    dots) on its Mosaic-compatible "2dio" variant; tests/test_ntt_fourstep.py
+    holds all three variants equal to the reference's ntt_mxu_b."""
+    pctx, rctx = _contexts(256)
+    fs = FourStepNtt(pctx, 16, 16)
+    rfs = ref_fs.FourStepNtt(rctx, 16, 16)
+    rows = (0, 1, 2)
+    x = _residues(pctx.primes, rows, (2, 256), seed=42)
+    pallas = ntt_fourstep_pallas(rfs, _u32(x), rows, dot_impl="f32",
+                                 interpret=True, variant="2dio")
+    np.testing.assert_array_equal(fs.ntt_mxu_b(torch.as_tensor(x),
+                                               rows).numpy(), _words(pallas))
+
+
+def test_backend_round_trip_and_autoperm():
+    pctx, rctx = _contexts(256)
+    backend = FourStepBackend(pctx)
+    rback = ref_fs.FourStepBackend(rctx)
+    assert backend.order == "natural"
+    assert backend.p is pctx.p          # other attributes delegate
+    rows = (0, 2)
+    x = torch.as_tensor(_residues(pctx.primes, rows, (4, 256), seed=3)
+                        ).transpose(0, 1).contiguous()            # [4, R, N]
+    y = backend.ntt(x, rows)                         # [..., R, N] layout
+    np.testing.assert_array_equal(
+        y.numpy(), _words(rback.ntt(_u32(x.numpy()), rows)))
+    assert torch.equal(backend.intt(y, rows), x)
+    for g in (5, 25, 2 * 256 - 1):
+        np.testing.assert_array_equal(backend.autoperm(g), rback.autoperm(g))
+
+
+def test_wrapper_rejects_cpu_tensor():
+    pctx, _ = _contexts(256)
+    fs = FourStepNtt(pctx, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fourstep_cuda.fourstep_fwd(fs, torch.zeros(3, 256, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        fourstep_cuda.fourstep_inv(fs, torch.zeros(3, 256, dtype=torch.int64))
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    for n in (256, 8192, 16384):
+        pctx = port_ntt.NttContext.build(n, find_ntt_primes(n, 4),
+                                         device="cuda")
+        backend = FourStepBackend(pctx)
+        rows = (0, 3)
+        x = torch.as_tensor(
+            np.moveaxis(_residues(pctx.primes, rows, (5, n)), 0, 1).copy(),
+            device="cuda")                                    # [B, R, N]
+        y = backend.ntt(x, rows)
+        assert torch.equal(y, backend.ntt_plain(x, rows))
+        assert torch.equal(backend.intt(y, rows), backend.intt_plain(y, rows))
+        assert torch.equal(backend.intt(y, rows), x)
+        assert torch.equal(y.index_select(-1, backend.fs.to_stockham),
+                           pctx.ntt(x, rows))

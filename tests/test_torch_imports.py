@@ -17,7 +17,10 @@ def test_port_imports_no_jax_no_reference():
     names = ["fhe_spear_tpu_torch"] + [
         m.name for m in pkgutil.walk_packages(fhe_spear_tpu_torch.__path__,
                                               "fhe_spear_tpu_torch.")]
-    assert "fhe_spear_tpu_torch.core.ntt_cuda" in names
+    for mod in ("core.ntt_cuda", "core.fourstep_cuda",
+                "parallel.ntt_fourstep", "models.device_client", "bench",
+                "bench_streams"):
+        assert "fhe_spear_tpu_torch." + mod in names, mod
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
