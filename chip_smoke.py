@@ -10,10 +10,11 @@ Phases (each failure raises, and the script exits non-zero):
      in this checkout, all started together;
   3. kernels: hold NTT kernels K1/K2 and the four-step kernels
      fourstep_fwd/fourstep_inv against their plain torch versions,
-     bitwise, at N=8192 and the batch shapes of the main path (and one
-     N=16384 shape for the four-step pair), check the round trips and
-     fourstep_fwd against K1 through bitrev, and time kernel and plain
-     version (CUDA events, median);
+     bitwise, at N=8192 and the batch shapes of the main path (and, for
+     the four-step pair, B=1, odd batches, N=256, N=128 and N=16384, with
+     each launch's shared memory and polynomials per CTA), check the
+     round trips and fourstep_fwd against K1 through bitrev, and time
+     kernel and plain version (CUDA events, median);
   4. classic path: client-aided RWKV-7 generation through `run_generation`
      at D=2048, F=8192, N=8192, L=3, K=1, level 3 on the fused transport
      with i32 staging (depth cut to 2 blocks; 2 tokens, the first a
@@ -145,9 +146,9 @@ def _bound(B: int, R: int, n: int):
 def _bound_fourstep(B: int, R: int, n: int, n1: int, n2: int):
     """Least time for one four-step transform of [B, R, n]: K1's bytes at
     the same shape, against n * (n1 + n2) modular multiply-adds per
-    polynomial, each 25 7-bit limb products on the int8 tensor cores (a
-    multiply-add counts as two operations)."""
-    ops = B * R * n * (n1 + n2) * 25 * 2
+    polynomial, each 16 8-bit limb products on the int8 tensor cores (the
+    kernel's 4 x 4 limbs; a multiply-add counts as two operations)."""
+    ops = B * R * n * (n1 + n2) * 16 * 2
     t_bytes = _bytes_ntt(B, R, n) / HBM_BYTES_PER_S
     t_ops = ops / INT8_TC_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -172,6 +173,17 @@ SHAPES = [(368, (0, 1, 2)), (24, (0, 1, 2, 3)), (90, (3,)), (16, (0, 3)),
           (8, (0, 1, 2))]
 TIMED = {"ntt_fwd": (368, (0, 1, 2)), "ntt_inv": (90, (3,)),
          "fourstep_fwd": (368, (0, 1, 2)), "fourstep_inv": (90, (3,))}
+
+
+def _log_plan(fs, B, rows, n):
+    from fhe_spear_tpu_torch.core.fourstep_cuda import plan
+
+    for fwd in (True, False):
+        pl = plan(fs, (B, len(rows), n), forward=fwd)
+        log(f"    plan {'fourstep_fwd' if fwd else 'fourstep_inv'} "
+            f"[{B}, {len(rows)}, {n}]: {pl['smem_bytes']} B shared memory "
+            f"per CTA, {pl['ctas']} CTAs, <= {pl['polys_per_cta']} "
+            f"polynomials per CTA, {pl['ctas_per_sm']} CTA(s) per SM")
 
 
 def phase_kernels():
@@ -219,26 +231,43 @@ def phase_kernels():
         if e_f or e_i or e_3 or e_3i or not (rt and rt3 and vs_k1):
             raise AssertionError(f"a kernel disagrees at B={B} rows={rows}")
 
-    # one shape at N=16384 (n1 = 128), where two buffers need 128 KB of
-    # dynamic shared memory
+    for B, rows in SHAPES:
+        _log_plan(fs, B, rows, N)
+
+    def fourstep_case(backend, B, rows, why):
+        n = backend.fs.base.n
+        x = _residues(backend.fs.base, B, rows, gen)
+        z = fourstep_fwd(backend.fs, x, rows)
+        zb = fourstep_inv(backend.fs, z, rows)
+        e_3 = check("fourstep_fwd", z, backend.ntt_plain(x, rows))
+        e_3i = check("fourstep_inv", zb, backend.intt_plain(z, rows))
+        rt3 = bool(torch.equal(zb, x))
+        torch.cuda.synchronize()
+        log(f"  [B={B}, R={len(rows)}, N={n}] n1={backend.fs.n1} "
+            f"n2={backend.fs.n2} ({why}): fourstep_fwd max|err|={e_3} "
+            f"fourstep_inv max|err|={e_3i} round trip={rt3}")
+        _log_plan(backend.fs, B, rows, n)
+        if e_3 or e_3i or not rt3:
+            raise AssertionError(f"four-step kernels disagree at B={B} "
+                                 f"rows={rows} N={n}")
+
+    # shapes the tiling makes risky: one polynomial; a batch that is not a
+    # multiple of the polynomials per CTA; N=256 and N=128, where K, M and
+    # N below one mma tile are zero-padded; N=16384 (n1 = n2 = 128), where
+    # one copy of the DFT matrix serves both stages (216 KB of shared memory)
+    fourstep_case(fsb, 1, (0, 1, 2), "one polynomial")
+    fourstep_case(fsb, 7, (0, 1, 2), "odd B*R")
+    fourstep_case(fsb, 133, (0, 1, 2), "uneven polynomials per CTA")
+    for n_small, B in ((256, 8), (128, 5)):
+        ctx_s = NttContext.build(n_small, find_ntt_primes(n_small, L,
+                                 reserve_special=K), device="cuda")
+        fourstep_case(FourStepBackend(ctx_s), B, (0, 1, 2, 3),
+                      "zero-padded tiles")
     n16 = 16384
     ctx16 = NttContext.build(n16, find_ntt_primes(n16, L, reserve_special=K),
                              device="cuda")
-    fsb16 = FourStepBackend(ctx16)
-    rows = (0, 1, 2)
-    x = _residues(ctx16, 8, rows, gen)
-    z = fourstep_fwd(fsb16.fs, x, rows)
-    zb = fourstep_inv(fsb16.fs, z, rows)
-    e_3 = check("fourstep_fwd", z, fsb16.ntt_plain(x, rows))
-    e_3i = check("fourstep_inv", zb, fsb16.intt_plain(z, rows))
-    rt3 = bool(torch.equal(zb, x))
-    torch.cuda.synchronize()
-    log(f"  [B=8, R=3, N={n16}] n1={fsb16.fs.n1} n2={fsb16.fs.n2}: "
-        f"fourstep_fwd max|err|={e_3} fourstep_inv max|err|={e_3i} "
-        f"round trip={rt3}")
-    if e_3 or e_3i or not rt3:
-        raise AssertionError("four-step kernels disagree at N=16384")
-    del ctx16, fsb16, x, z, zb
+    fourstep_case(FourStepBackend(ctx16), 8, (0, 1, 2), "shared W")
+    del ctx16, ctx_s
 
     calls = {"ntt_fwd": (ctx.ntt, ctx.ntt_plain),
              "ntt_inv": (ctx.intt, ctx.intt_plain),

@@ -17,13 +17,17 @@ tests/test_torch_fourstep.py):
     stockham_ntt(x)[b] == fourstep_ntt(x)[bitrev(b)].
 
 Plain versions.  `ntt_mxu_b` / `intt_mxu_b` are the plain torch versions of
-the CUDA kernels `fourstep_fwd` / `fourstep_inv` (`core/fourstep_cuda.py`).
-They keep the reference's 7-bit limb contraction but run it as a float64
-matmul: every partial sum is below 2^14 * K <= 2^21, so float64 is exact on
-the CPU and on the card (cuBLAS has no int64 matmul), and the nine limb-pair
-diagonals are recombined with `mont_mul` by 2^(7s) mod p exactly as the
-reference's `_matmul_mod_mxu` does.  `FourStepBackend.ntt` / `intt` launch
-the kernels for a CUDA tensor and run the plain versions for a CPU tensor.
+the CUDA kernels `fourstep_fwd` / `fourstep_inv` (`core/fourstep_cuda.py`)
+and repeat their arithmetic: 4 unsigned 8-bit limbs a residue, the 16
+limb-pair products summed into 7 shift groups T_s (s = a + b; every
+partial sum below 4 * 128 * 255^2 < 2^25 at K = 128, so the float64 matmul
+that forms them is exact on the CPU and on the card, where cuBLAS has no
+int64 matmul), then the kernel's epilogue: fold the groups into S =
+sum_s T_s * (2^(8s) mod p) < 2^32 p and reduce it with one Montgomery
+REDC.  The result is the unique canonical value congruent to (sum W*X) *
+R^-1, so it equals the reference's 7-bit limbs and 9 mont_mul
+recombination word for word.  `FourStepBackend.ntt` / `intt` launch the kernels for a CUDA tensor
+and run the plain versions for a CPU tensor.
 
 Left out until the multi-device slice: `_sharded_fn` / `ntt_sharded`
 (shard_map + all_to_all).
@@ -34,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.modops import add_mod, mont_mul
+from ..core.modops import MASK32, mont_mul, mont_reduce_wide
 from ..core.ntt import NttContext, bitrev_indices
 
 __all__ = ["FourStepNtt", "FourStepBackend"]
@@ -52,11 +56,48 @@ def _pow_mod(base: int, e: np.ndarray, p: int) -> np.ndarray:
     return out.astype(np.uint64)
 
 
-def _limbs7(w: np.ndarray) -> np.ndarray:
-    """uint32 [L, M, K] -> 7-bit limbs [L, 5, M, K] int8 (values 0..127)."""
-    out = np.stack([(w >> np.uint32(7 * b)) & np.uint32(0x7F)
-                    for b in range(5)], axis=1)
-    return out.astype(np.int8)
+LIMBS = 4                       # unsigned 8-bit limbs of a 32-bit word
+GROUPS = 2 * LIMBS - 1          # shift groups 2^(8s), s = 0..6
+
+
+def _limbs8(w: np.ndarray) -> np.ndarray:
+    """uint32 [L, M, K] -> 8-bit limbs [L, 4, M, K] uint8, limb a holding
+    bits 8a..8a+7."""
+    out = np.stack([(w >> np.uint32(8 * a)) & np.uint32(0xFF)
+                    for a in range(LIMBS)], axis=1)
+    return out.astype(np.uint8)
+
+
+def shift_groups(a8: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """a8: [R, 4, M, K] 8-bit limbs, x: [R, K, J] words < 2^32 -> the shift
+    groups T [R, 7, M, J] int64, T_s = sum_{a+b=s} sum_k a8[a] * limb_b(x),
+    so that sum_k A[m, k] * x[k, j] = sum_s T_s 2^(8s).  One [R, 4M, K] x
+    [R, K, 4J] float64 matmul; every entry is below 4 * K * 255^2 < 2^25
+    for K <= 128 (exact in float64, and in the kernel's int32)."""
+    r, _, m, k = a8.shape
+    j = x.shape[-1]
+    xb = torch.stack([(x >> (8 * b)) & 0xFF for b in range(LIMBS)],
+                     dim=1)                              # [R, 4, K, J]
+    A = a8.reshape(r, LIMBS * m, k).to(torch.float64)
+    X = xb.transpose(1, 2).reshape(r, k, LIMBS * j).to(torch.float64)
+    S = torch.bmm(A, X).to(torch.int64).reshape(r, LIMBS, m, LIMBS, j)
+    groups = []
+    for s in range(GROUPS):
+        lo_a = max(0, s - LIMBS + 1)
+        T = S[:, lo_a, :, s - lo_a, :]
+        for a in range(lo_a + 1, min(s, LIMBS - 1) + 1):
+            T = T + S[:, a, :, s - a, :]
+        groups.append(T)
+    return torch.stack(groups, dim=1)
+
+
+def fold_reduce(T: torch.Tensor, p, pinv, dsh) -> torch.Tensor:
+    """The kernel's epilogue: (sum_s T_s 2^(8s)) * 2^-32 mod p, canonical.
+    T: [R, 7, M, J] (T_s < 2^25); p, pinv: [R, 1, 1]; dsh: [R, 7, 1, 1],
+    2^(8s) mod p.  S = sum_s T_s * dsh_s is below 7 * 2^25 * p < 2^32 p, so
+    one REDC of S makes it canonical."""
+    S = (T * dsh).sum(dim=1)
+    return mont_reduce_wide(S >> 32, S & MASK32, p, pinv)
 
 
 class FourStepNtt:
@@ -81,7 +122,6 @@ class FourStepNtt:
         w1i = np.zeros((L, n1, n1), dtype=np.uint32)
         w2i = np.zeros((L, n2, n2), dtype=np.uint32)
         twi = np.zeros((L, n2, n1), dtype=np.uint32)
-        csh = np.zeros((L, 9), dtype=np.uint32)
         k1j1 = np.outer(np.arange(n1), np.arange(n1)) * n2 % n
         k2j2 = np.outer(np.arange(n2), np.arange(n2)) * n1 % n
         k1j2 = np.outer(np.arange(n1), np.arange(n2)) % n
@@ -98,20 +138,19 @@ class FourStepNtt:
             w1i[li] = mont(_pow_mod(oinv, k1j1, p))
             w2i[li] = mont(_pow_mod(oinv, k2j2, p))
             twi[li] = mont(_pow_mod(oinv, k1j2.T, p))
-            # recombination constants 2^(7s) mod p, PLAIN domain: one
-            # mont_mul per shift group folds the R^-1 of the product back in
-            for s in range(9):
-                csh[li, s] = (1 << (7 * s)) % p
 
         dev = self.device
         i64 = lambda a: torch.as_tensor(a.astype(np.int64), device=dev)
-        i8 = lambda a: torch.as_tensor(a, device=dev)
+        u8 = lambda a: torch.as_tensor(a, device=dev)
         self.w1, self.w2, self.tw = i64(w1), i64(w2), i64(tw)   # Mont
         self.w1i, self.w2i, self.twi = i64(w1i), i64(w2i), i64(twi)
-        # DFT matrices as 7-bit limbs (values 0..127): [L, 5, M, K] int8
-        self.w1_8, self.w2_8 = i8(_limbs7(w1)), i8(_limbs7(w2))
-        self.w1i_8, self.w2i_8 = i8(_limbs7(w1i)), i8(_limbs7(w2i))
-        self.csh = i64(csh)                                     # [L, 9]
+        # DFT matrices as 8-bit limbs: [L, 4, M, K] uint8
+        self.w1_8, self.w2_8 = u8(_limbs8(w1)), u8(_limbs8(w2))
+        self.w1i_8, self.w2i_8 = u8(_limbs8(w1i)), u8(_limbs8(w2i))
+        # the epilogue's shift constants 2^(8s) mod p: [L, 7]
+        self.dsh = i64(np.array([[(1 << (8 * s)) % pr.p
+                                  for s in range(GROUPS)]
+                                 for pr in ntt.primes]))
         # bin b of the Stockham output = four-step bin bitrev(b)
         self.to_stockham = torch.as_tensor(bitrev_indices(n), device=dev)
         self._sel_cache: dict = {}
@@ -149,66 +188,14 @@ class FourStepNtt:
                         pinv[..., None])           # [..., R, M, K, J]
         return prod.sum(dim=-2) % p
 
-    # -- limb contraction: float64 matmul over 7-bit limbs, exact ----------
-    #
-    # A and X are Montgomery residues split into 5 x 7-bit limbs.  The full
-    # 62-bit integer product sum_k A[m,k]*X[k,j] is assembled from one
-    # [R, 5M, K] x [R, K, 5J] matmul (every partial sum < 2^14 * K <= 2^21,
-    # exact in float64); the anti-diagonal limb groups T_s (< 2^24) are
-    # recombined as sum_s mont_mul(T_s, 2^(7s) mod p) = (A.X) * R^-1 mod p,
-    # bitwise identical to the mont_mul tree of _matmul_mod.
+    # -- limb contraction: the kernels' arithmetic, exact -----------------
 
-    def _matmul_mod_mxu(self, a8, x, p, pinv, csh):
-        """a8: [R, 5, M, K] int8, x: [R, K, J] int64 -> [R, M, J] int64."""
-        r, _, m, k = a8.shape
-        j = x.shape[-1]
-        xb = torch.stack([(x >> (7 * b)) & 0x7F for b in range(5)],
-                         dim=1)                          # [R, 5, K, J]
-        A = a8.reshape(r, 5 * m, k).to(torch.float64)
-        X = xb.transpose(1, 2).reshape(r, k, 5 * j).to(torch.float64)
-        S = torch.bmm(A, X).to(torch.int64).reshape(r, 5, m, 5, j)
-        p3, pinv3 = p[..., None], pinv[..., None]       # [R, 1, 1]
-        out = None
-        for s in range(9):
-            lo_a = max(0, s - 4)
-            T = S[:, lo_a, :, s - lo_a, :]
-            for a in range(lo_a + 1, min(s, 4) + 1):
-                T = T + S[:, a, :, s - a, :]            # < 2^24
-            term = mont_mul(T, csh[:, s, None, None], p3, pinv3)
-            out = term if out is None else add_mod(out, term, p3)
-        return out
-
-    def ntt_mxu(self, x: torch.Tensor, rows=None) -> torch.Tensor:
-        """[R, N] Mont -> [R, N] Mont, four-step order, limb contraction."""
-        n1, n2 = self.n1, self.n2
-        p, pinv = self._sel_np(rows, "p"), self._sel_np(rows, "pinv")
-        csh = self._sel(self.csh, rows)
-        x = mont_mul(x, self.base._sel("psi", rows), p, pinv)   # twist
-        lead = x.shape[:-1]
-        x = x.reshape(lead + (n1, n2))
-        a = self._matmul_mod_mxu(self._sel(self.w1_8, rows), x, p, pinv, csh)
-        a = mont_mul(a, self._sel(self.tw, rows), p[..., None],
-                     pinv[..., None])                           # twiddle
-        b = self._matmul_mod_mxu(self._sel(self.w2_8, rows),
-                                 a.transpose(-1, -2), p, pinv, csh)
-        return b.reshape(lead + (self.base.n,))
-
-    def intt_mxu(self, x: torch.Tensor, rows=None) -> torch.Tensor:
-        """Inverse of ntt_mxu/ntt (four-step bin order in, coefficients
-        out).  intt_mxu(ntt_mxu(x)) == x bitwise."""
-        n1, n2 = self.n1, self.n2
-        p, pinv = self._sel_np(rows, "p"), self._sel_np(rows, "pinv")
-        csh = self._sel(self.csh, rows)
-        lead = x.shape[:-1]
-        x = x.reshape(lead + (n2, n1))                          # [R, k2, k1]
-        a = self._matmul_mod_mxu(self._sel(self.w2i_8, rows), x, p, pinv,
-                                 csh)                           # [R, j2, k1]
-        a = mont_mul(a, self._sel(self.twi, rows), p[..., None],
-                     pinv[..., None])
-        b = self._matmul_mod_mxu(self._sel(self.w1i_8, rows),
-                                 a.transpose(-1, -2), p, pinv, csh)
-        b = b.reshape(lead + (self.base.n,))
-        return mont_mul(b, self.base._sel("psi_inv_n", rows), p, pinv)
+    def _matmul_mod_mxu(self, a8, x, p, pinv, dsh):
+        """a8: [R, 4, M, K] uint8, x: [R, K, J] int64 -> [R, M, J] int64,
+        (sum_k A[m, k] * x[k, j]) * R^-1 mod p (see shift_groups and
+        fold_reduce)."""
+        return fold_reduce(shift_groups(a8, x), p[..., None],
+                           pinv[..., None], dsh[..., None, None])
 
     # -- batched variants: [R, B, N] with the batch riding the J axis ------
 
@@ -218,19 +205,19 @@ class FourStepNtt:
         n1, n2 = self.n1, self.n2
         r, bsz, n = x.shape
         p, pinv = self._sel_np(rows, "p"), self._sel_np(rows, "pinv")
-        csh = self._sel(self.csh, rows)
+        dsh = self._sel(self.dsh, rows)
         p2, pinv2 = p[..., None], pinv[..., None]               # [R, 1, 1]
         x = mont_mul(x, self.base._sel("psi", rows)[:, None], p2, pinv2)
         xt = x.reshape(r, bsz, n1, n2).transpose(1, 2).reshape(
             r, n1, bsz * n2)
         a = self._matmul_mod_mxu(self._sel(self.w1_8, rows), xt, p, pinv,
-                                 csh)                           # [R, k1, B*j2]
+                                 dsh)                           # [R, k1, B*j2]
         a = mont_mul(a.reshape(r, n1, bsz, n2),
                      self._sel(self.tw, rows)[:, :, None, :],
                      p2[..., None], pinv2[..., None])
         at = a.permute(0, 3, 2, 1).reshape(r, n2, bsz * n1)    # [R, j2, B*k1]
         b = self._matmul_mod_mxu(self._sel(self.w2_8, rows), at, p, pinv,
-                                 csh)                           # [R, k2, B*k1]
+                                 dsh)                           # [R, k2, B*k1]
         return b.reshape(r, n2, bsz, n1).transpose(1, 2).reshape(
             r, bsz, n)                                          # k = k2*N1+k1
 
@@ -240,18 +227,18 @@ class FourStepNtt:
         n1, n2 = self.n1, self.n2
         r, bsz, n = x.shape
         p, pinv = self._sel_np(rows, "p"), self._sel_np(rows, "pinv")
-        csh = self._sel(self.csh, rows)
+        dsh = self._sel(self.dsh, rows)
         p2, pinv2 = p[..., None], pinv[..., None]
         xt = x.reshape(r, bsz, n2, n1).transpose(1, 2).reshape(
             r, n2, bsz * n1)                                    # [R, k2, B*k1]
         a = self._matmul_mod_mxu(self._sel(self.w2i_8, rows), xt, p, pinv,
-                                 csh)                           # [R, j2, B*k1]
+                                 dsh)                           # [R, j2, B*k1]
         a = mont_mul(a.reshape(r, n2, bsz, n1),
                      self._sel(self.twi, rows)[:, :, None, :],
                      p2[..., None], pinv2[..., None])
         at = a.permute(0, 3, 2, 1).reshape(r, n1, bsz * n2)    # [R, k1, B*j2]
         b = self._matmul_mod_mxu(self._sel(self.w1i_8, rows), at, p, pinv,
-                                 csh)                           # [R, j1, B*j2]
+                                 dsh)                           # [R, j1, B*j2]
         b = b.reshape(r, n1, bsz, n2).transpose(1, 2).reshape(r, bsz, n)
         return mont_mul(b, self.base._sel("psi_inv_n", rows)[:, None], p2,
                         pinv2)

@@ -5,8 +5,11 @@ kernels fourstep_fwd / fourstep_inv), the Pallas four-step kernel in
 interpret mode, the round trip and `FourStepBackend.autoperm`, at n=256
 with splits (16, 16) and (8, 32) and at n=1024 with the backend's default
 split, on rows (0, 1, 2) and (for the limb contractions) the (0, 2)
-subset.  The CUDA kernels against the plain versions run in the
-`cuda`-marked test (and in chip_smoke.py)."""
+subset.  The plain versions repeat the kernels' arithmetic (8-bit limbs,
+7 shift groups, one REDC); the worst-case test holds their shift-group
+sums below 2^31 on inputs all p - 1, and the epilogue and the kernels'
+limb-plane layout are checked on their own.  The CUDA kernels against the
+plain versions run in the `cuda`-marked test (and in chip_smoke.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ from fhe_spear_tpu.parallel import ntt_fourstep as ref_fs
 from fhe_spear_tpu_torch.core import fourstep_cuda
 from fhe_spear_tpu_torch.core import ntt as port_ntt
 from fhe_spear_tpu_torch.core.primes import find_ntt_primes
+from fhe_spear_tpu_torch.parallel import ntt_fourstep as port_fs
 from fhe_spear_tpu_torch.parallel.ntt_fourstep import FourStepBackend, \
     FourStepNtt
 
@@ -79,6 +83,88 @@ def test_fourstep_bitwise_against_reference(n, n1, rows):
         stock, pctx.ntt(torch.as_tensor(x0), rows).numpy())
 
 
+@pytest.mark.parametrize("n,n1", [(1024, None), (256, 8)])
+def test_worst_case_shift_groups_stay_below_2_31(n, n1, monkeypatch):
+    """Inputs all p - 1 (on every limb, the largest prime of
+    find_ntt_primes(n, L) among them): every shift-group partial sum of
+    both stages stays below 2^31 (and below the 2^25 the kernel's note
+    claims), and the outputs equal the reference bit for bit."""
+    pctx, rctx = _contexts(n)
+    fs = FourStepBackend(pctx, n1).fs
+    assert (fs.n1, fs.n2) == ((16, 64) if n1 is None else (8, 32))
+    rfs = ref_fs.FourStepNtt(rctx, fs.n1, fs.n2)
+    rows = tuple(range(L))
+    assert max(pr.p for pr in pctx.primes) in [pctx.primes[r].p
+                                                for r in rows]
+    p = np.array([pctx.primes[r].p for r in rows], dtype=np.int64)
+    x = np.broadcast_to((p - 1)[:, None, None], (L, 2, n)).copy()
+
+    peak = []
+    groups = port_fs.shift_groups
+
+    def recording(a8, xx):
+        T = groups(a8, xx)
+        peak.append(int(T.max()))
+        return T
+
+    monkeypatch.setattr(port_fs, "shift_groups", recording)
+    got = fs.ntt_mxu_b(torch.as_tensor(x), rows).numpy()
+    back = fs.intt_mxu_b(torch.as_tensor(x), rows).numpy()
+    assert len(peak) == 4                  # two stages in each direction
+    assert max(peak) < 2 ** 25 < 2 ** 31, peak
+    np.testing.assert_array_equal(got, _words(rfs.ntt_mxu_b(_u32(x), rows)))
+    np.testing.assert_array_equal(back, _words(rfs.intt_mxu_b(_u32(x),
+                                                              rows)))
+    # the analytic worst case at K = 128: every limb 255, 4 pairs a group
+    a8 = torch.full((1, 4, 16, 128), 255, dtype=torch.uint8)
+    T = groups(a8, torch.full((1, 128, 8), 2 ** 32 - 1, dtype=torch.int64))
+    assert int(T.max()) == 4 * 128 * 255 ** 2 < 2 ** 25
+
+
+def test_fold_reduce_is_exact_at_the_bounds():
+    """The kernels' epilogue against Python integers: shift groups at
+    their largest value (4 * 128 * 255^2) and at random values, on each
+    prime: (sum_s T_s 2^(8s)) * 2^-32 mod p, canonical."""
+    pctx, _ = _contexts(1024)
+    fs = FourStepNtt(pctx, 16, 64)
+    rng = np.random.default_rng(11)
+    top = 4 * 128 * 255 ** 2
+    T = rng.integers(0, top + 1, size=(L, 7, 3, 5), dtype=np.int64)
+    T[:, :, 0, 0] = top
+    T[:, :, 0, 1] = 0
+    T[:, :, 1, 0] = np.arange(7) * 1000 + 1
+    got = port_fs.fold_reduce(torch.as_tensor(T), pctx.p[:, :, None],
+                              pctx.pinv[:, :, None],
+                              fs.dsh[:, :, None, None]).numpy()
+    for li, pr in enumerate(pctx.primes):
+        rinv = pow(1 << 32, -1, pr.p)
+        for m in range(3):
+            for j in range(5):
+                v = sum(int(T[li, s, m, j]) << (8 * s) for s in range(7))
+                assert got[li, m, j] == v * rinv % pr.p
+
+
+def test_limb_image_layout():
+    """The kernels' shared-memory image of a DFT matrix: 4 byte planes,
+    rows padded to 16, k to 32 plus 16 bytes, padding zero, and the limbs
+    recombine to the Montgomery words."""
+    pctx, _ = _contexts(256)
+    for n1, n2 in ((16, 16), (8, 32)):
+        fs = FourStepNtt(pctx, n1, n2)
+        for w8, w in ((fs.w1_8, fs.w1), (fs.w2_8, fs.w2), (fs.w1i_8, fs.w1i)):
+            m, k = w.shape[-2:]
+            img = fourstep_cuda.limb_image(w8)
+            assert img.dtype == torch.uint8
+            assert img.shape == (L, 4, max(16, m), max(32, k) + 16)
+            assert (img.shape[-1] // 16) % 2 == 1      # 16 x an odd stride
+            words = sum(img[:, a, :m, :k].to(torch.int64) << (8 * a)
+                        for a in range(4))
+            assert torch.equal(words, w)
+            pad = img.clone()
+            pad[:, :, :m, :k] = 0
+            assert int(pad.abs().sum()) == 0
+
+
 def test_fourstep_matches_pallas_kernel():
     """The plain version equals the Pallas kernel (interpret mode, f32 limb
     dots) on its Mosaic-compatible "2dio" variant; tests/test_ntt_fourstep.py
@@ -118,6 +204,9 @@ def test_wrapper_rejects_cpu_tensor():
         fourstep_cuda.fourstep_fwd(fs, torch.zeros(3, 256, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA"):
         fourstep_cuda.fourstep_inv(fs, torch.zeros(3, 256, dtype=torch.int64))
+    # a split the kernel cannot take (n1 < 8) raises before any build
+    with pytest.raises(ValueError, match="split"):
+        fourstep_cuda.plan(FourStepNtt(pctx, 4, 64), (3, 256))
 
 
 @pytest.mark.cuda
