@@ -5,16 +5,20 @@
 
 Phases (each failure raises, and the script exits non-zero):
   1. device: fail without CUDA; print the card's name and power limit;
-  2. build: compile the CUDA kernels (one nvcc per source: csrc/ntt.cu,
-     csrc/fourstep.cu) and the host batch encoder (g++) from the sources
-     in this checkout, all started together;
+  2. build: compile the CUDA kernels (one nvcc per library: csrc/ntt.cu
+     once per N it checks, csrc/fourstep.cu) and the host batch encoder
+     (g++) from the sources in this checkout, all started together;
   3. kernels: hold NTT kernels K1/K2 and the four-step kernels
      fourstep_fwd/fourstep_inv against their plain torch versions,
-     bitwise, at N=8192 and the batch shapes of the main path (and, for
-     the four-step pair, B=1, odd batches, N=256, N=128 and N=16384, with
-     each launch's shared memory and polynomials per CTA), check the
-     round trips and fourstep_fwd against K1 through bitrev, and time
-     kernel and plain version (CUDA events, median);
+     bitwise, at N=8192 and the batch shapes of the main path, at B*R=1,
+     odd batches ([7, 3], [133, 3]), N=2, 32, 64, 128, 256, 1024 (K1/K2;
+     the four-step pair at 128 and 256) and N=16384, with
+     each launch's plan (threads, shared memory, CTAs, polynomials per
+     CTA); hold the compiled K1/K2 schedule against `ntt_cuda.schedule`;
+     check the round trips, fourstep_fwd against K1 through bitrev, and
+     the fused `ntt_to_mont` / `intt_from_mont` of both backends against
+     the composed plain calls; time kernel and plain version (CUDA events,
+     median);
   4. classic path: client-aided RWKV-7 generation through `run_generation`
      at D=2048, F=8192, N=8192, L=3, K=1, level 3 on the fused transport
      with i32 staging (depth cut to 2 blocks; 2 tokens, the first a
@@ -27,7 +31,11 @@ Phases (each failure raises, and the script exits non-zero):
      `run_generation_batched` with 2 streams on 1 block, 1 token.
   Every token must match its plaintext twin with logit correlation
   >= 0.999 (0.9999 on the classic path), every stream its own twin;
-  8. print the kernels line, then the device line last.
+  8. hold every kernel bitwise against its plain version (plain and fused
+     entry points) at each shape the device-client paths launched it with
+     in their last token, time it there (plain version at the two most
+     frequent), and sum launches x (time - bound) over that shape mix;
+  9. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -59,6 +67,7 @@ CORR_DEVICE = 0.999    # the bar of tests/test_device_client.py
 CORR_CLASSIC = 0.9999  # the bar of tests/test_client_aided.py
 PREENC_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke_preenc"
 KERNELS = ("ntt_fwd", "ntt_inv", "fourstep_fwd", "fourstep_inv")
+NTT_LOGNS = (1, 5, 6, 7, 8, 10, 13, 14)   # the K1/K2 sizes the checks run
 DEVICE = "cuda"
 
 
@@ -88,20 +97,43 @@ def phase_build():
     from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
 
     t0 = time.perf_counter()
-    libs = (ntt_cuda.LIBRARY, fourstep_cuda.LIBRARY)
-    with ThreadPoolExecutor(3) as pool:
+    libs = tuple(ntt_cuda.library(logn) for logn in NTT_LOGNS) + (
+        fourstep_cuda.LIBRARY,)
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
         jobs = [pool.submit(lib.build) for lib in libs]
         enc = pool.submit(native.available)
         for j in jobs:
             j.result()
         have_native = enc.result()
     log(f"build: {time.perf_counter() - t0:.2f}s ("
-        + ", ".join(f"{lib.source.name} {lib.seconds:.2f}s" for lib in libs)
+        + ", ".join(f"{lib.stem} {lib.seconds:.2f}s" for lib in libs)
         + f"; host batch encoder: {'native' if have_native else 'numpy'})")
     for lib in libs:
-        for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {lib.source.name}: {line.strip()}")
+        for name, info in _ptxas(lib.log):
+            log(f"  ptxas {lib.stem} {name}: {info}")
+
+
+def _ptxas(text: str):
+    """(kernel, 'registers, stack, spills') of each entry function in
+    nvcc -Xptxas -v output (K1/K2 are templates on log2 N)."""
+    import re
+
+    out, name, frame = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(ntt_fwd_kernel|ntt_inv_kernel|fourstep_fwd_kernel"
+                          r"|fourstep_inv_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2) else
+                    k.group(1) if k else m.group(1))
+            frame = ""
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split("Used", 1)[1].strip()
+            out.append((name, f"{used}; {frame}"))
+            name = None
+    return out
 
 
 def _time_ms(fn, runs=21):
@@ -127,7 +159,8 @@ def _time_ms(fn, runs=21):
 def _bytes_ntt(B: int, R: int, n: int) -> int:
     """Bytes one transform of [B, R, n] int64 residues must move: read x
     once, write y once (8 bytes a word), read the per-limb twist and
-    twiddle tables once (4 bytes a word)."""
+    twiddle tables once (4 bytes a word: a kernel's own table layout, such
+    as K1/K2's Shoup quotients, is not part of the function)."""
     return 2 * 8 * B * R * n + 4 * R * (2 * n - 1 + 2)
 
 
@@ -186,6 +219,18 @@ def _log_plan(fs, B, rows, n):
             f"polynomials per CTA, {pl['ctas_per_sm']} CTA(s) per SM")
 
 
+def _log_plan_ntt(B, rows, n):
+    from fhe_spear_tpu_torch.core.ntt_cuda import plan
+
+    for fwd in (True, False):
+        pl = plan((B, len(rows), n), forward=fwd)
+        log(f"    plan {'ntt_fwd' if fwd else 'ntt_inv'} [{B}, {len(rows)}, "
+            f"{n}]: {pl['threads']} threads and {pl['smem_bytes']} B shared "
+            f"memory per CTA, {pl['ctas']} CTAs, <= {pl['polys_per_cta']} "
+            f"polynomials per CTA, {pl['ctas_per_sm']} CTA(s) per SM, no "
+            "cluster")
+
+
 def phase_kernels():
     import torch
 
@@ -196,6 +241,15 @@ def phase_kernels():
     from fhe_spear_tpu_torch.core.primes import find_ntt_primes
     from fhe_spear_tpu_torch.parallel.ntt_fourstep import FourStepBackend
 
+    for logn in range(1, 15):
+        if ntt_cuda.cuda_schedule(logn) != ntt_cuda.schedule(logn):
+            raise AssertionError(f"K1/K2 schedule at logn={logn} differs "
+                                 "from ntt_cuda.schedule")
+    log("  K1/K2 schedule (passes of register-resident stages) equals "
+        "ntt_cuda.schedule at N = 2 ... 16384: " + "; ".join(
+            f"N={1 << logn}: " + " + ".join(
+                str(ps["hi"] - ps["lo"] + 1) for ps in ntt_cuda.schedule(logn))
+            for logn in (7, 10, 13, 14)))
     ctx = NttContext.build(N, find_ntt_primes(N, L, reserve_special=K),
                            device="cuda")
     fsb = FourStepBackend(ctx)
@@ -210,29 +264,63 @@ def phase_kernels():
         err[name] = max(err[name], e)
         return e
 
+    def fused_ok(backend, x, y, want_f, want_i, rows):
+        """ntt_to_mont / intt_from_mont against the composed plain calls
+        (launches of the folded kernels, compared as K1/K2's are)."""
+        f = torch.equal(backend.ntt_to_mont(x, rows),
+                        ctx.to_mont(want_f, rows))
+        i = torch.equal(backend.intt_from_mont(y, rows),
+                        ctx.from_mont(want_i, rows))
+        return f and i
+
     for B, rows in SHAPES:
         x = _residues(ctx, B, rows, gen)
         y = ctx.ntt(x, rows)
         back = ctx.intt(y, rows)
-        e_f = check("ntt_fwd", y, ctx.ntt_plain(x, rows))
-        e_i = check("ntt_inv", back, ctx.intt_plain(y, rows))
+        want_f, want_i = ctx.ntt_plain(x, rows), ctx.intt_plain(y, rows)
+        e_f = check("ntt_fwd", y, want_f)
+        e_i = check("ntt_inv", back, want_i)
         rt = bool(torch.equal(back, x))
+        fused = fused_ok(ctx, x, y, want_f, want_i, rows)
         z = fourstep_fwd(fs, x, rows)
         zb = fourstep_inv(fs, z, rows)
-        e_3 = check("fourstep_fwd", z, fsb.ntt_plain(x, rows))
-        e_3i = check("fourstep_inv", zb, fsb.intt_plain(z, rows))
+        want_3, want_3i = fsb.ntt_plain(x, rows), fsb.intt_plain(z, rows)
+        e_3 = check("fourstep_fwd", z, want_3)
+        e_3i = check("fourstep_inv", zb, want_3i)
         rt3 = bool(torch.equal(zb, x))
+        fused3 = fused_ok(fsb, x, z, want_3, want_3i, rows)
         vs_k1 = bool(torch.equal(z.index_select(-1, fs.to_stockham), y))
         torch.cuda.synchronize()
         log(f"  [B={B}, R={len(rows)}, N={N}] rows={rows}: K1 max|err|={e_f} "
-            f"K2 max|err|={e_i} round trip={rt}; fourstep_fwd max|err|={e_3}"
-            f" fourstep_inv max|err|={e_3i} round trip={rt3} "
-            f"fwd[bitrev] == K1: {vs_k1}")
-        if e_f or e_i or e_3 or e_3i or not (rt and rt3 and vs_k1):
+            f"K2 max|err|={e_i} round trip={rt} fused={fused}; fourstep_fwd "
+            f"max|err|={e_3} fourstep_inv max|err|={e_3i} round trip={rt3} "
+            f"fused={fused3} fwd[bitrev] == K1: {vs_k1}")
+        if e_f or e_i or e_3 or e_3i or not (rt and rt3 and vs_k1 and fused
+                                             and fused3):
             raise AssertionError(f"a kernel disagrees at B={B} rows={rows}")
 
     for B, rows in SHAPES:
+        _log_plan_ntt(B, rows, N)
         _log_plan(fs, B, rows, N)
+
+    def ntt_case(c, B, rows, why):
+        n = c.n
+        x = _residues(c, B, rows, gen)
+        y = c.ntt(x, rows)
+        back = c.intt(y, rows)
+        want_f, want_i = c.ntt_plain(x, rows), c.intt_plain(y, rows)
+        e_f = check("ntt_fwd", y, want_f)
+        e_i = check("ntt_inv", back, want_i)
+        rt = bool(torch.equal(back, x))
+        fused = (torch.equal(c.ntt_to_mont(x, rows), c.to_mont(want_f, rows))
+                 and torch.equal(c.intt_from_mont(y, rows),
+                                 c.from_mont(want_i, rows)))
+        torch.cuda.synchronize()
+        log(f"  [B={B}, R={len(rows)}, N={n}] ({why}): K1 max|err|={e_f} "
+            f"K2 max|err|={e_i} round trip={rt} fused={fused}")
+        _log_plan_ntt(B, rows, n)
+        if e_f or e_i or not (rt and fused):
+            raise AssertionError(f"K1/K2 disagree at B={B} rows={rows} N={n}")
 
     def fourstep_case(backend, B, rows, why):
         n = backend.fs.base.n
@@ -252,47 +340,124 @@ def phase_kernels():
                                  f"rows={rows} N={n}")
 
     # shapes the tiling makes risky: one polynomial; a batch that is not a
-    # multiple of the polynomials per CTA; N=256 and N=128, where K, M and
-    # N below one mma tile are zero-padded; N=16384 (n1 = n2 = 128), where
-    # one copy of the DFT matrix serves both stages (216 KB of shared memory)
+    # multiple of the polynomials per CTA; small N (K1/K2: several
+    # polynomials per CTA; four-step: K, M and N below one mma tile are
+    # zero-padded); N=16384 (K1/K2: 512 threads, 67.5 KB of dynamic shared
+    # memory; four-step: n1 = n2 = 128, one copy of the DFT matrix serves
+    # both stages, 216 KB of shared memory)
+    ntt_case(ctx, 1, (2,), "B*R = 1")
+    ntt_case(ctx, 7, (0, 1, 2), "odd B*R")
+    ntt_case(ctx, 133, (0, 1, 2), "uneven polynomials per CTA")
     fourstep_case(fsb, 1, (0, 1, 2), "one polynomial")
     fourstep_case(fsb, 7, (0, 1, 2), "odd B*R")
     fourstep_case(fsb, 133, (0, 1, 2), "uneven polynomials per CTA")
-    for n_small, B in ((256, 8), (128, 5)):
+    # N = 64 is the smallest N of two passes, N = 32 and N = 2 run one; at
+    # [17001, 4, 32] each CTA slot takes several polynomials in turn
+    for n_small, B in ((1024, 6), (256, 8), (128, 5), (64, 9), (32, 17001),
+                       (2, 301)):
         ctx_s = NttContext.build(n_small, find_ntt_primes(n_small, L,
                                  reserve_special=K), device="cuda")
-        fourstep_case(FourStepBackend(ctx_s), B, (0, 1, 2, 3),
-                      "zero-padded tiles")
+        ntt_case(ctx_s, B, (0, 1, 2, 3), "several polynomials per CTA")
+        if n_small in (128, 256):
+            fourstep_case(FourStepBackend(ctx_s), B, (0, 1, 2, 3),
+                          "zero-padded tiles")
     n16 = 16384
     ctx16 = NttContext.build(n16, find_ntt_primes(n16, L, reserve_special=K),
                              device="cuda")
+    ntt_case(ctx16, 8, (0, 1, 2), "512 threads, dynamic shared memory")
     fourstep_case(FourStepBackend(ctx16), 8, (0, 1, 2), "shared W")
     del ctx16, ctx_s
+
+    out = {}
+    for name, (B, rows) in TIMED.items():
+        out[name] = _time_kernel(name, ctx, fsb, B, rows, gen)
+        out[name]["max_abs_err"] = err[name]
+    ntt_cuda.reset_counts()
+    fourstep_cuda.reset_counts()
+    torch.cuda.empty_cache()
+    return out, ctx, fsb
+
+
+def _time_kernel(name, ctx, fsb, B, rows, gen, plain=True):
+    """Kernel (and plain version) ms at [B, len(rows), N], with the bound,
+    after holding the kernel's plain and fused (Montgomery conversion
+    folded in) entry points bitwise against the plain version there."""
+    import torch
 
     calls = {"ntt_fwd": (ctx.ntt, ctx.ntt_plain),
              "ntt_inv": (ctx.intt, ctx.intt_plain),
              "fourstep_fwd": (fsb.ntt, fsb.ntt_plain),
              "fourstep_inv": (fsb.intt, fsb.intt_plain)}
-    out = {}
-    for name, (B, rows) in TIMED.items():
-        x = _residues(ctx, B, rows, gen)
-        kern, plain = calls[name]
-        ms = _time_ms(lambda: kern(x, rows))
-        plain_ms = _time_ms(lambda: plain(x, rows))
-        if name.startswith("fourstep"):
-            bound_ms, bound_by = _bound_fourstep(B, len(rows), N, fs.n1,
-                                                 fs.n2)
-        else:
-            bound_ms, bound_by = _bound(B, len(rows), N)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "max_abs_err": err[name],
-                     "shape": [B, len(rows), N]}
-        log(f"  {name} [B={B}, R={len(rows)}, N={N}]: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    ntt_cuda.reset_counts()
-    fourstep_cuda.reset_counts()
+    fused = {"ntt_fwd": (ctx.ntt_to_mont, ctx.to_mont),
+             "ntt_inv": (ctx.intt_from_mont, ctx.from_mont),
+             "fourstep_fwd": (fsb.ntt_to_mont, ctx.to_mont),
+             "fourstep_inv": (fsb.intt_from_mont, ctx.from_mont)}
+    x = _residues(ctx, B, rows, gen)
+    kern, plain_fn = calls[name]
+    want = plain_fn(x, rows)
+    kern_f, convert = fused[name]
+    if not (torch.equal(kern(x, rows), want) and torch.equal(
+            kern_f(x, rows), convert(want, rows))):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"[{B}, {len(rows)}, {N}]")
+    ms = _time_ms(lambda: kern(x, rows))
+    plain_ms = _time_ms(lambda: plain_fn(x, rows)) if plain else None
+    if name.startswith("fourstep"):
+        bound_ms, bound_by = _bound_fourstep(B, len(rows), N, fsb.fs.n1,
+                                             fsb.fs.n2)
+    else:
+        bound_ms, bound_by = _bound(B, len(rows), N)
+    log(f"  {name} [B={B}, R={len(rows)}, N={N}]: kernel {ms:.4f} ms, plain "
+        + (f"{plain_ms:.4f} ms" if plain else "not timed")
+        + f", bound {bound_ms:.4f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": [B, len(rows), N]}
+
+
+def _shape_counts():
+    from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
+
+    stats = {"ntt_fwd": ntt_cuda.NTT_FWD, "ntt_inv": ntt_cuda.NTT_INV,
+             "fourstep_fwd": fourstep_cuda.FOURSTEP_FWD,
+             "fourstep_inv": fourstep_cuda.FOURSTEP_INV}
+    return {k: dict(st.by_shape) for k, st in stats.items()}
+
+
+def phase_shapes(ctx, fsb, hists, timing):
+    """Hold each kernel bitwise against its plain version (plain and fused
+    entry points) at every shape its device-client path launched it with in
+    the path's last token, then time it there (the plain version at the
+    two most frequent), and sum launches x (kernel - bound) over that mix."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    path = {"ntt_fwd": "device client stockham",
+            "ntt_inv": "device client stockham",
+            "fourstep_fwd": "device client mxu",
+            "fourstep_inv": "device client mxu"}
+    one = torch.zeros(1, device="cuda")
+    log("shapes: each kernel at its device-client token's shape mix, held "
+        "bitwise against its plain version first; a trivial torch kernel "
+        f"(the method's per-launch floor) reads "
+        f"{_time_ms(lambda: one.add_(1)):.4f} ms")
+    for name in KERNELS:
+        hist = hists[path[name]][name]
+        rows_out, excess = [], 0.0
+        for i, ((B, R, n), cnt) in enumerate(
+                sorted(hist.items(), key=lambda kv: -kv[1])):
+            if n != N or R > L + K:
+                continue
+            t = _time_kernel(name, ctx, fsb, B, tuple(range(R)), gen,
+                             plain=i < 2)
+            t["launches"] = cnt
+            excess += cnt * (t["ms"] - t["bound_ms"])
+            rows_out.append(t)
+        timing[name]["by_shape"] = rows_out
+        timing[name]["excess_ms_per_token"] = excess
+        log(f"  {name}: launches x (kernel - bound) over the {path[name]} "
+            f"token's mix = {excess:.3f} ms")
     torch.cuda.empty_cache()
-    return out
 
 
 def _counts():
@@ -311,17 +476,21 @@ def _reset_counts():
     fourstep_cuda.reset_counts()
 
 
-def _drive(tag, fn, corr_bar, must_launch=(), must_not_launch=()):
+def _drive(tag, fn, corr_bar, must_launch=(), must_not_launch=(),
+           hists=None):
     """Run one generation path with the counts set to 0 just before it and
-    read just after; check every token against its twin and the counts."""
+    read just after; check every token against its twin and the counts.
+    Prints each token's launches by shape (most frequent first) and, with
+    `hists`, keeps the last token's there."""
     import torch
 
-    per_token = []
+    per_token, per_token_shapes = [], []
 
     def on_log(msg):
         log(f"  [{tag}] {msg}")
         if msg.startswith("token "):
             per_token.append(_counts())
+            per_token_shapes.append(_shape_counts())
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -331,10 +500,22 @@ def _drive(tag, fn, corr_bar, must_launch=(), must_not_launch=()):
     torch.cuda.synchronize()
     counts = _counts()
     prev = dict.fromkeys(KERNELS, 0)
-    for i, c in enumerate(per_token):
+    prev_shapes = {k: {} for k in KERNELS}
+    token_hist = None
+    for i, (c, sh) in enumerate(zip(per_token, per_token_shapes)):
         log(f"  [{tag}] launches token {i}: "
             + " ".join(f"{k}={c[k] - prev[k]}" for k in KERNELS))
-        prev = c
+        token_hist = {k: {s: n - prev_shapes[k].get(s, 0)
+                          for s, n in sh[k].items()
+                          if n - prev_shapes[k].get(s, 0)} for k in KERNELS}
+        for k in KERNELS:
+            if token_hist[k]:
+                log(f"  [{tag}]   {k} by [B, R, N]: " + ", ".join(
+                    f"{list(s)} x{n}" for s, n in sorted(
+                        token_hist[k].items(), key=lambda kv: -kv[1])))
+        prev, prev_shapes = c, sh
+    if hists is not None:
+        hists[tag] = token_hist
     log(f"  [{tag}] total {time.perf_counter() - t0:.2f}s, peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches {counts}")
@@ -381,7 +562,7 @@ def _one_block(model):
                      ln0_b=model.ln0_b)
 
 
-def phase_paths():
+def phase_paths(hists):
     import numpy as np
     import torch
 
@@ -418,7 +599,7 @@ def phase_paths():
             ctx, model, seed_tokens=SEED_TOKENS, num_tokens=2, level=LEVEL,
             cache_dir=str(PREENC_CACHE), log_fn=lg),
         CORR_DEVICE, must_launch=("ntt_fwd", "ntt_inv"),
-        must_not_launch=("fourstep_fwd", "fourstep_inv"))
+        must_not_launch=("fourstep_fwd", "fourstep_inv"), hists=hists)
 
     # streams on the stockham context, 1 block
     torch.cuda.reset_peak_memory_stats()
@@ -467,7 +648,7 @@ def phase_paths():
             ctx_mxu, model, seed_tokens=SEED_TOKENS, num_tokens=2,
             level=LEVEL, cache_dir=str(PREENC_CACHE), log_fn=lg),
         CORR_DEVICE, must_launch=("fourstep_fwd", "fourstep_inv"),
-        must_not_launch=("ntt_fwd", "ntt_inv"))
+        must_not_launch=("ntt_fwd", "ntt_inv"), hists=hists)
     return counts
 
 
@@ -480,11 +661,13 @@ def main(argv=None):
     phase_build()
     log("kernels: K1/K2 and fourstep_fwd/fourstep_inv against their plain "
         "torch versions")
-    timing = phase_kernels()
+    timing, kctx, kfsb = phase_kernels()
     if "--kernels-only" in argv:
         log(json.dumps({"kernel_timing": timing}))
         return
-    counts = phase_paths()
+    hists = {}
+    counts = phase_paths(hists)
+    phase_shapes(kctx, kfsb, hists, timing)
     # launches: K1/K2 from the first slice's path (classic fused
     # transport), the four-step pair from this slice's (device client on
     # the mxu backend); every phase's counts are in launches_by_path
@@ -512,7 +695,8 @@ def main(argv=None):
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "shape": t["shape"]})
+            "shape": t["shape"], "by_shape": t["by_shape"],
+            "excess_ms_per_token": t["excess_ms_per_token"]})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

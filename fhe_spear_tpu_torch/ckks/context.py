@@ -317,7 +317,7 @@ class CkksContext:
     def _to_eval_mont(self, coeffs: np.ndarray, rows: tuple) -> torch.Tensor:
         """Centered integer coefficients -> device eval/Mont tensor [R, N]."""
         res = self._tensor(self._reduce_rows(coeffs, rows))
-        return self.ntt.to_mont(self.ntt.ntt(res, rows), rows)
+        return self.ntt.ntt_to_mont(res, rows)
 
     def _uniform(self, shape_rows, rows) -> np.ndarray:
         """Uniform residues mod q_rows, shape [..., R, N] (R = len(rows))."""
@@ -349,7 +349,7 @@ class CkksContext:
         (a is Mont by fiat; e plain coefficients)."""
         ntt = self.ntt
         all_rows = tuple(range(self.L + self.K))
-        e_ev = ntt.to_mont(ntt.ntt(e, all_rows), all_rows)
+        e_ev = ntt.ntt_to_mont(e, all_rows)
         b = add_mod(neg_mod(mont_mul(a, self.s_eval, ntt.p, ntt.pinv), ntt.p),
                     e_ev, ntt.p)
         # digit j carries (P mod q_j) * s' on limb j (zero elsewhere and on
@@ -422,8 +422,8 @@ class CkksContext:
         e = self._tensor(self._reduce_rows(self._gauss(lead), rows))
         ntt = self.ntt
         p, pinv = self._p(level)
-        me = ntt.to_mont(ntt.ntt(m, rows), rows)
-        ee = ntt.to_mont(ntt.ntt(e, rows), rows)
+        me = ntt.ntt_to_mont(m, rows)
+        ee = ntt.ntt_to_mont(e, rows)
         c0 = add_mod(add_mod(neg_mod(mont_mul(a, self.s_eval[:level], p,
                                               pinv), p), me, p), ee, p)
         return Ciphertext(torch.stack([c0, a], dim=-3), scale)
@@ -448,7 +448,7 @@ class CkksContext:
         p, pinv = self._p(nl)
         v = add_mod(c[..., 0, :nl, :],
                     mont_mul(c[..., 1, :nl, :], self.s_eval[:nl], p, pinv), p)
-        return ntt.from_mont(ntt.intt(v, rows), rows)
+        return ntt.intt_from_mont(v, rows)
 
     def decrypt_to_coeffs(self, ct: Ciphertext) -> np.ndarray:
         """Decrypt to centered integer coefficients from the first
@@ -569,9 +569,9 @@ class CkksContext:
         rows = tuple(range(l - 1))
         qlinv = self._qlinv[l - 1, : l - 1, None]
         p, pinv = self._p(l - 1)
-        last = ntt.from_mont(ntt.intt(c[..., l - 1:, :], (l - 1,)), (l - 1,))
+        last = ntt.intt_from_mont(c[..., l - 1:, :], (l - 1,))
         u = self._extend_centered(last, (l - 1,), rows)[..., 0, :, :]
-        u = ntt.to_mont(ntt.ntt(u, rows), rows)
+        u = ntt.ntt_to_mont(u, rows)
         return mont_mul(sub_mod(c[..., : l - 1, :], u, p), qlinv, p, pinv)
 
     def mod_drop(self, x: Ciphertext, levels: int = 1) -> Ciphertext:
@@ -606,7 +606,7 @@ class CkksContext:
         ntt = self.ntt
         rows = tuple(range(l))
         tgt = self.targets(l)
-        coeffs = ntt.from_mont(ntt.intt(c1, rows), rows)
+        coeffs = ntt.intt_from_mont(c1, rows)
         return ntt.ntt(self._extend_centered(coeffs, rows, tgt), tgt)
 
     def select_key(self, ksk: KeySwitchKey, l: int):
@@ -634,7 +634,7 @@ class CkksContext:
         rows = tuple(range(l))
         sp_rows = tuple(range(self.L, self.L + self.K))
         p, pinv = self._p(l)
-        t = ntt.from_mont(ntt.intt(ks[..., l:, :], sp_rows), sp_rows)
+        t = ntt.intt_from_mont(ks[..., l:, :], sp_rows)
         if self.K > 1:
             p_sp = self._sel(ntt.p, sp_rows)
             y = mont_mul(t, self.phat_inv_mont, p_sp,
@@ -653,7 +653,7 @@ class CkksContext:
             u = sub_mod(u, vq, p)
         else:
             u = self._extend_centered(t, sp_rows, rows)[..., 0, :, :]
-        u = ntt.to_mont(ntt.ntt(u, rows), rows)
+        u = ntt.ntt_to_mont(u, rows)
         return mont_mul(sub_mod(ks[..., :l, :], u, p), self.Pinv_mont[:l],
                         p, pinv)
 

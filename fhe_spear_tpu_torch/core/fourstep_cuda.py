@@ -94,7 +94,9 @@ def _share(fs) -> int:
 
 def _tables(fs, device: torch.device) -> dict:
     """The kernels' tables of a FourStepNtt on the device (built once per
-    FourStepNtt): uint32 words psi / psi_inv_n [L, N], tw [L, n1, n2], twi
+    FourStepNtt): uint32 words psi / psi_inv_n [L, N] and their folded
+    forms psi_to_mont / psi_inv_n_from_mont (`NttContext.folded_tables`),
+    tw [L, n1, n2], twi
     [L, n2, n1], p / pinv [L], d [L, 8] (2^(8s) mod p, s < 7); limb-plane
     images w1 / w2 / w1i / w2i
     (`limb_image`); share: the two DFT matrices are equal (n1 == n2)."""
@@ -107,11 +109,14 @@ def _tables(fs, device: torch.device) -> dict:
             return limb_image(w8.to(device)).contiguous()
 
         base = fs.base
+        folded = base.folded_tables()
         # residues (< 2^31) keep their bits in int32; pinv may reach 2^32,
         # so it is stored as its two's-complement int32 word
         pinv = base.pinv[:, 0]
         tb = {"device": device,
               "psi": u32(base.psi), "psi_inv_n": u32(base.psi_inv_n),
+              "psi_to_mont": u32(folded["psi_to_mont"]),
+              "psi_inv_n_from_mont": u32(folded["psi_inv_n_from_mont"]),
               "w1": img(fs.w1_8), "w2": img(fs.w2_8), "tw": u32(fs.tw),
               "w1i": img(fs.w1i_8), "w2i": img(fs.w2i_8), "twi": u32(fs.twi),
               "p": u32(base.p[:, 0]), "pinv": u32(pinv - ((pinv >> 31) << 32)),
@@ -174,18 +179,24 @@ def _launch(stats: KernelStats, fn_name: str, names: tuple, fs, x, rows):
     if rc != 0:
         raise RuntimeError(f"{stats.name}: kernel launch failed, "
                            f"cudaGetLastError() = {rc}")
-    stats.launches += 1
+    stats.count(B, R, n)
     return y
 
 
-def fourstep_fwd(fs, x: torch.Tensor, rows=None) -> torch.Tensor:
+def fourstep_fwd(fs, x: torch.Tensor, rows=None, to_mont: bool = False
+                 ) -> torch.Tensor:
     """Kernel K3: forward four-step NTT of x [..., R, N] in natural bin
-    order, bitwise equal to fs.ntt_mxu_b (fs: a FourStepNtt)."""
-    return _launch(FOURSTEP_FWD, "fhe_fourstep_fwd", ("psi", "w1", "tw", "w2"),
+    order, bitwise equal to fs.ntt_mxu_b (fs: a FourStepNtt); with to_mont
+    (twist table psi^j * R^2), equal to its to_mont."""
+    twist = "psi_to_mont" if to_mont else "psi"
+    return _launch(FOURSTEP_FWD, "fhe_fourstep_fwd", (twist, "w1", "tw", "w2"),
                    fs, x, rows)
 
 
-def fourstep_inv(fs, x: torch.Tensor, rows=None) -> torch.Tensor:
-    """Inverse four-step NTT, bitwise equal to fs.intt_mxu_b."""
+def fourstep_inv(fs, x: torch.Tensor, rows=None, from_mont: bool = False
+                 ) -> torch.Tensor:
+    """Inverse four-step NTT, bitwise equal to fs.intt_mxu_b; with
+    from_mont (untwist table psi^-j * N^-1), equal to its from_mont."""
+    untwist = "psi_inv_n_from_mont" if from_mont else "psi_inv_n"
     return _launch(FOURSTEP_INV, "fhe_fourstep_inv",
-                   ("psi_inv_n", "w2i", "twi", "w1i"), fs, x, rows)
+                   (untwist, "w2i", "twi", "w1i"), fs, x, rows)

@@ -13,6 +13,9 @@ canonical in [0, p)).  On a CUDA tensor they launch the hand-written
 kernels of `core/ntt_cuda.py` (csrc/ntt.cu); on a CPU tensor they run the
 plain torch version (`ntt_plain`/`intt_plain`), the reference's Stockham
 loop written in torch, which the kernels are held against.
+`ntt_to_mont`/`intt_from_mont` are `to_mont(ntt(x))`/`from_mont(intt(y))`:
+the same kernels with the conversion folded into the twist tables (the
+transforms are linear over Z_p), and the composed plain calls on the CPU.
 """
 
 from __future__ import annotations
@@ -123,6 +126,7 @@ class NttContext:
         self.fwd_tw = tables["fwd_tw"]      # stage s: [L, 1, n >> (s+1)]
         self.inv_tw = tables["inv_tw"]
         self._sel_cache: dict = {}
+        self._folded = None
         self.kernel_tables = None           # device tables of core/ntt_cuda
 
     @classmethod
@@ -204,6 +208,36 @@ class NttContext:
 
             return ntt_inv(self, y.contiguous(), rows)
         return self.intt_plain(y, rows)
+
+    def ntt_to_mont(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """to_mont(ntt(x, rows), rows).  CUDA tensors run kernel K1 with the
+        twist table psi^j * R^2; CPU tensors compose the plain calls."""
+        if x.is_cuda:
+            from .ntt_cuda import ntt_fwd
+
+            return ntt_fwd(self, x.contiguous(), rows, to_mont=True)
+        return self.to_mont(self.ntt_plain(x, rows), rows)
+
+    def intt_from_mont(self, y: torch.Tensor, rows=None) -> torch.Tensor:
+        """from_mont(intt(y, rows), rows).  CUDA tensors run kernel K2 with
+        the untwist table psi^-j * N^-1; CPU tensors compose the plain
+        calls."""
+        if y.is_cuda:
+            from .ntt_cuda import ntt_inv
+
+            return ntt_inv(self, y.contiguous(), rows, from_mont=True)
+        return self.from_mont(self.intt_plain(y, rows), rows)
+
+    def folded_tables(self) -> dict:
+        """Montgomery-form twist tables [L, N] with the conversion folded in
+        (built once): psi_to_mont = psi^j * R^2, so that mont_mul(x, it) =
+        to_mont(mont_mul(x, psi)); psi_inv_n_from_mont = psi^-j * N^-1, so
+        that mont_mul(x, it) = from_mont(mont_mul(x, psi_inv_n))."""
+        if self._folded is None:
+            self._folded = {
+                "psi_to_mont": self.to_mont(self.psi),
+                "psi_inv_n_from_mont": self.from_mont(self.psi_inv_n)}
+        return self._folded
 
     def ntt_plain(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         """Plain torch forward transform (the Stockham loop of the

@@ -219,7 +219,7 @@ class DeviceTokenRunner:
         v = add_mod(out_ct[..., 0, :1, :],
                     mont_mul(out_ct[..., 1, :1, :], ctx.s_eval[:1], p1, pinv1),
                     p1)
-        t = ntt.from_mont(ntt.intt(v, (0,)), (0,))[..., 0, :]
+        t = ntt.intt_from_mont(v, (0,))[..., 0, :]
         centered = torch.where(t > self._q0 // 2, t - self._q0, t)
         coeffs = centered.to(torch.float32) / np.float32(self._out_scale)
         return self._decode_dev(coeffs)

@@ -219,7 +219,7 @@ def rns_expand(ctx: CkksContext, coeffs: torch.Tensor, level: int
     rows = tuple(range(level))
     p, _ = ctx._p(level)
     r = coeffs.to(torch.int64)[..., None, :] % p      # canonical in [0, p)
-    return ctx.ntt.to_mont(ctx.ntt.ntt(r, rows), rows)
+    return ctx.ntt.ntt_to_mont(r, rows)
 
 
 def _load_coeffs(ctx: CkksContext, coeffs: np.ndarray, level: int

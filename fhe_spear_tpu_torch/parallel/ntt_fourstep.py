@@ -268,9 +268,10 @@ class FourStepNtt:
 class FourStepBackend:
     """NttContext-compatible transform backend in NATURAL bin order.
 
-    Drop-in for CkksContext (params.ntt_backend="mxu"): ntt/intt run the
-    four-step transform (kernels `fourstep_fwd` / `fourstep_inv` for a
-    CUDA tensor, the plain limb contraction for a CPU tensor); every other
+    Drop-in for CkksContext (params.ntt_backend="mxu"): ntt/intt (and
+    ntt_to_mont/intt_from_mont) run the four-step transform (kernels
+    `fourstep_fwd` / `fourstep_inv` for a CUDA tensor, the plain limb
+    contraction for a CPU tensor); every other
     attribute (p, pinv, r2, to_mont, from_mont, tables, ...) delegates to
     the wrapped Stockham NttContext.  Bin b holds m(psi^(2b+1)), so
     automorphism permutations come from autoperm() below, and a context on
@@ -316,6 +317,26 @@ class FourStepBackend:
 
             return fourstep_inv(self.fs, x.contiguous(), rows)
         return self.intt_plain(x, rows)
+
+    def ntt_to_mont(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """to_mont(ntt(x, rows), rows).  CUDA tensors run kernel
+        fourstep_fwd with the twist table psi^j * R^2; CPU tensors compose
+        the plain calls."""
+        if x.is_cuda:
+            from ..core.fourstep_cuda import fourstep_fwd
+
+            return fourstep_fwd(self.fs, x.contiguous(), rows, to_mont=True)
+        return self.base.to_mont(self.ntt_plain(x, rows), rows)
+
+    def intt_from_mont(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """from_mont(intt(x, rows), rows).  CUDA tensors run kernel
+        fourstep_inv with the untwist table psi^-j * N^-1; CPU tensors
+        compose the plain calls."""
+        if x.is_cuda:
+            from ..core.fourstep_cuda import fourstep_inv
+
+            return fourstep_inv(self.fs, x.contiguous(), rows, from_mont=True)
+        return self.base.from_mont(self.intt_plain(x, rows), rows)
 
     def ntt_plain(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         rows = tuple(rows) if rows is not None else None

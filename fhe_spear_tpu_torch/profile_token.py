@@ -8,7 +8,8 @@ level 3) on the chosen transport -- classic: `FheRwkvClient` on the fused
 transport with i32 staging; device: the device-resident client
 `DeviceTokenRunner` -- and NTT backend, runs one warm-up token, then
 traces one steady token with torch.profiler and prints: the token's wall
-time, the device's busy time and idle share over that window, and the
+time, the device's busy time and idle share over that window, the count
+of device events (kernels and copies) and their summed time, and the
 device time by kernel name (largest first).  Needs a card.
 """
 
@@ -85,8 +86,9 @@ def main(argv=None):
           f"{args.transport}, ntt backend {args.ntt_backend}")
     print(f"token wall {wall * 1e3:.1f} ms over {args.blocks} blocks; device "
           f"busy {busy_us / 1e3:.1f} ms, idle share "
-          f"{1 - busy_us / 1e3 / (wall * 1e3):.3f}; "
-          f"{len(events)} device events")
+          f"{1 - busy_us / 1e3 / (wall * 1e3):.3f}")
+    print(f"device events: {len(events)} kernels and copies, "
+          f"{total_dev / 1e3:.1f} ms summed over them")
     agg = {}
     for bt in timings:
         for k, v in bt.items():
