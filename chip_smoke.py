@@ -31,11 +31,26 @@ Phases (each failure raises, and the script exits non-zero):
      `run_generation_batched` with 2 streams on 1 block, 1 token.
   Every token must match its plaintext twin with logit correlation
   >= 0.999 (0.9999 on the classic path), every stream its own twin;
-  8. hold every kernel bitwise against its plain version (plain and fused
+  8. retrieval: column-packed CT-CT scores of 50k seeded unit vectors (and
+     1k, 10k; dim 64, Lorentz, N=8192), row-packed CT-PT and CT-CT at 1k;
+     every mode's encrypted top-1 must equal the plaintext `lorentz_inner`
+     top-1, with score correlation >= 0.9999;
+  9. RAG: `EncryptedRag` over 64 synthetic passages, row mode, D=2048,
+     F=8192, 1 block, generation N=8192, 2 tokens: the retrieved passage
+     must be the plaintext top-1 and every token equal its twin;
+ 10. fully-encrypted FFN chain: D=2048, F=8192, N=8192, 3 blocks, L=11,
+     K=8, dnum=8 (6 grouped keyswitch digits), i32 staging, pre-encoded
+     at `fe_level_schedule(11, 3)`, two passes; every block needs corr >
+     0.99999 and max_err < 1e-3 against the plaintext oracle; then one
+     width-2 block at L=9 (corr > 0.9999999, max_err < 1e-6).  K1/K2
+     launch counts must rise in each of phases 8-10;
+ 11. hold every kernel bitwise against its plain version (plain and fused
      entry points) at each shape the device-client paths launched it with
      in their last token, time it there (plain version at the two most
      frequent), and sum launches x (time - bound) over that shape mix;
-  9. print the kernels line, then the device line last.
+     hold K1/K2 the same way at the largest shapes phases 8-10 launched,
+     and time them there;
+ 12. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -67,7 +82,8 @@ CORR_DEVICE = 0.999    # the bar of tests/test_device_client.py
 CORR_CLASSIC = 0.9999  # the bar of tests/test_client_aided.py
 PREENC_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke_preenc"
 KERNELS = ("ntt_fwd", "ntt_inv", "fourstep_fwd", "fourstep_inv")
-NTT_LOGNS = (1, 5, 6, 7, 8, 10, 13, 14)   # the K1/K2 sizes the checks run
+# the K1/K2 sizes the checks and paths run (N=2048: the RAG retriever)
+NTT_LOGNS = (1, 5, 6, 7, 8, 10, 11, 13, 14)
 DEVICE = "cuda"
 
 
@@ -378,40 +394,45 @@ def phase_kernels():
     return out, ctx, fsb
 
 
-def _time_kernel(name, ctx, fsb, B, rows, gen, plain=True):
-    """Kernel (and plain version) ms at [B, len(rows), N], with the bound,
-    after holding the kernel's plain and fused (Montgomery conversion
-    folded in) entry points bitwise against the plain version there."""
+def _time_kernel(name, ctx, fsb, B, rows, gen, plain=True, plain_runs=21):
+    """Kernel (and plain version) ms at [B, len(rows), ctx.n], with the
+    bound, after holding the kernel's plain and fused (Montgomery
+    conversion folded in) entry points bitwise against the plain version
+    there."""
     import torch
 
-    calls = {"ntt_fwd": (ctx.ntt, ctx.ntt_plain),
-             "ntt_inv": (ctx.intt, ctx.intt_plain),
-             "fourstep_fwd": (fsb.ntt, fsb.ntt_plain),
-             "fourstep_inv": (fsb.intt, fsb.intt_plain)}
-    fused = {"ntt_fwd": (ctx.ntt_to_mont, ctx.to_mont),
-             "ntt_inv": (ctx.intt_from_mont, ctx.from_mont),
-             "fourstep_fwd": (fsb.ntt_to_mont, ctx.to_mont),
-             "fourstep_inv": (fsb.intt_from_mont, ctx.from_mont)}
+    n = ctx.n
+
+    # (entry point, plain version), (fused entry point, conversion)
+    calls = {"ntt_fwd": lambda: ((ctx.ntt, ctx.ntt_plain),
+                                 (ctx.ntt_to_mont, ctx.to_mont)),
+             "ntt_inv": lambda: ((ctx.intt, ctx.intt_plain),
+                                 (ctx.intt_from_mont, ctx.from_mont)),
+             "fourstep_fwd": lambda: ((fsb.ntt, fsb.ntt_plain),
+                                      (fsb.ntt_to_mont, ctx.to_mont)),
+             "fourstep_inv": lambda: ((fsb.intt, fsb.intt_plain),
+                                      (fsb.intt_from_mont, ctx.from_mont))}
     x = _residues(ctx, B, rows, gen)
-    kern, plain_fn = calls[name]
+    (kern, plain_fn), (kern_f, convert) = calls[name]()
     want = plain_fn(x, rows)
-    kern_f, convert = fused[name]
     if not (torch.equal(kern(x, rows), want) and torch.equal(
             kern_f(x, rows), convert(want, rows))):
         raise AssertionError(f"{name} disagrees with its plain version at "
-                             f"[{B}, {len(rows)}, {N}]")
+                             f"[{B}, {len(rows)}, {n}]")
     ms = _time_ms(lambda: kern(x, rows))
-    plain_ms = _time_ms(lambda: plain_fn(x, rows)) if plain else None
+    plain_ms = (_time_ms(lambda: plain_fn(x, rows), runs=plain_runs)
+                if plain else None)
     if name.startswith("fourstep"):
-        bound_ms, bound_by = _bound_fourstep(B, len(rows), N, fsb.fs.n1,
+        bound_ms, bound_by = _bound_fourstep(B, len(rows), n, fsb.fs.n1,
                                              fsb.fs.n2)
     else:
-        bound_ms, bound_by = _bound(B, len(rows), N)
-    log(f"  {name} [B={B}, R={len(rows)}, N={N}]: kernel {ms:.4f} ms, plain "
+        bound_ms, bound_by = _bound(B, len(rows), n)
+    log(f"  {name} [B={B}, R={len(rows)}, N={n}]: kernel {ms:.4f} ms, plain "
         + (f"{plain_ms:.4f} ms" if plain else "not timed")
-        + f", bound {bound_ms:.4f} ms ({bound_by})")
+        + f", bound {bound_ms:.4f} ms ({bound_by}), held bitwise (plain and "
+        "fused entry points)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "shape": [B, len(rows), N]}
+            "bound_by": bound_by, "shape": [B, len(rows), n]}
 
 
 def _shape_counts():
@@ -652,6 +673,353 @@ def phase_paths(hists):
     return counts
 
 
+RET_DIM = 64
+RET_SIZES = (1000, 10000, 50000)   # column-packed corpus sizes
+RET_ROW_DOCS = 1000                # row-packed corpus size
+CORR_RETRIEVAL = 0.9999
+RAG_DOCS, RAG_TOKENS = 64, 2
+FE_BLOCKS, FE_L, FE_K, FE_DNUM = 3, 11, 8, 8   # bench_fully_enc's, depth cut
+FE_W2_L = 9
+FE_CORR, FE_ERR = 0.99999, 1e-3
+FE_W2_CORR, FE_W2_ERR = 0.9999999, 1e-6
+NTT_KERNELS = ("ntt_fwd", "ntt_inv")
+
+
+def _hist_since(before):
+    """K1/K2 launches by [B, R, N] since the `_shape_counts()` snapshot
+    `before`."""
+    after = _shape_counts()
+    return {k: {s: c - before[k].get(s, 0) for s, c in after[k].items()
+                if c - before[k].get(s, 0)} for k in NTT_KERNELS}
+
+
+def _log_hist(tag, hist):
+    for k in NTT_KERNELS:
+        if hist[k]:
+            log(f"  [{tag}]   {k} by [B, R, N]: " + ", ".join(
+                f"{list(s)} x{c}" for s, c in sorted(
+                    hist[k].items(), key=lambda kv: -kv[1])))
+
+
+def _must_launch_ntt(tag, counts):
+    for k in NTT_KERNELS:
+        if counts[k] == 0:
+            raise AssertionError(f"{tag}: kernel {k} never launched")
+
+
+def _wall_ms(fn, runs=3):
+    """Median host-clock ms of fn() ending in a device synchronize."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[runs // 2]
+
+
+def phase_retrieval(new_hists):
+    """Column-packed CT-CT at 1k/10k/50k docs, row-packed CT-PT and CT-CT
+    at 1k, each held against the plaintext Lorentz scores."""
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.ops.packing import euclidean_to_lorentz, \
+        lorentz_inner
+    from fhe_spear_tpu_torch.ops.retrieval import ColumnPackedRetrieval, \
+        RowPackedRetrieval
+
+    log(f"retrieval: dim {RET_DIM} Lorentz, N={N}, L=3, K=1 "
+        "(CkksParams.retrieval); seeded random unit vectors")
+    ctx = CkksContext(CkksParams.retrieval(n=N), seed=0, device=DEVICE)
+    rng = np.random.RandomState(0)
+
+    def unit(*shape):
+        v = rng.rand(*shape) * 2 - 1
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    def check(tag, scores, docs, q):
+        true = lorentz_inner(euclidean_to_lorentz(q),
+                             euclidean_to_lorentz(docs))
+        corr = float(np.corrcoef(scores, true)[0, 1])
+        top, want = int(np.argmax(scores)), int(np.argmax(true))
+        if top != want or not corr >= CORR_RETRIEVAL:
+            raise AssertionError(f"retrieval {tag}: encrypted top-1 {top} vs "
+                                 f"plaintext {want}, corr {corr}")
+        return corr
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start = _shape_counts()
+    out = {}
+    col = ColumnPackedRetrieval(ctx, RET_DIM)
+    for n_docs in RET_SIZES:
+        docs, q = unit(n_docs, RET_DIM), unit(RET_DIM)
+        t0 = time.perf_counter()
+        corpus = col.encrypt_corpus(docs)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        before = _shape_counts()
+        t0 = time.perf_counter()
+        ct = col.scores(corpus, col.encrypt_query(q))
+        scores = col.decode_scores(ct, n_docs)
+        t_query = time.perf_counter() - t0
+        query_hist = _hist_since(before)
+        qct = col.encrypt_query(q)
+        ms = _wall_ms(lambda: col.scores(corpus, qct))
+        corr = check(f"column {n_docs}", scores, docs, q)
+        out[f"column_{n_docs}"] = {"score_ms": ms,
+                                   "us_per_doc": ms * 1e3 / n_docs,
+                                   "encrypt_s": t_enc, "query_s": t_query,
+                                   "corr": corr,
+                                   "chunks": int(corpus.c.shape[0])}
+        log(f"  [column CT-CT, {n_docs} docs, {corpus.c.shape[0]} chunks x "
+            f"{col.n_coord} ciphertexts] scores {ms:.2f} ms "
+            f"({ms * 1e3 / n_docs:.3f} us/doc, median of 3), encrypt corpus "
+            f"{t_enc:.2f}s, one query end to end {t_query:.3f}s, top-1 = "
+            f"plaintext, corr {corr:.7f}")
+        if n_docs == max(RET_SIZES):
+            log(f"  [column CT-CT, {n_docs} docs] one query's launches:")
+            _log_hist("retrieval query", query_hist)
+        del corpus, ct, qct
+    row = RowPackedRetrieval(ctx, RET_DIM)
+    docs, q = unit(RET_ROW_DOCS, RET_DIM), unit(RET_DIM)
+    qct = row.encrypt_query(q)
+    for mode in ("ctpt", "ctct"):
+        if mode == "ctpt":
+            corpus = row.encode_docs(docs)
+            fn = lambda: row.scores_ctpt(qct, corpus)
+            nb = corpus.p.shape[0]
+        else:
+            corpus = row.encrypt_docs(docs)
+            fn = lambda: row.scores_ctct(qct, corpus)
+            nb = corpus.c.shape[0]
+        scores = row.decode_scores(fn(), RET_ROW_DOCS)
+        ms = _wall_ms(fn)
+        corr = check(f"row {mode}", scores, docs, q)
+        out[f"row_{mode}_{RET_ROW_DOCS}"] = {"score_ms": ms, "batches": nb,
+                                             "ms_per_batch": ms / nb,
+                                             "corr": corr}
+        log(f"  [row {mode.upper()}, {RET_ROW_DOCS} docs, {nb} batches of "
+            f"{row.docs_per_ct}] scores {ms:.2f} ms ({ms / nb:.3f} ms a "
+            f"batch, median of 3), top-1 = plaintext, corr {corr:.7f}")
+    torch.cuda.synchronize()
+    counts = _counts()
+    new_hists["retrieval"] = _hist_since(start)
+    log(f"  [retrieval] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{counts}")
+    _must_launch_ntt("retrieval", counts)
+    del ctx, col, row, corpus, qct
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_rag(new_hists):
+    """EncryptedRag end to end: retrieval on the card, plaintext prefill,
+    client-aided FHE tokens held against their plaintext twins."""
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.apps.rag import EncryptedRag
+
+    log(f"rag: {RAG_DOCS} synthetic passages, row CT-CT retrieval (N=2048), "
+        f"client-aided RWKV-7 D={D} F={F} N={N}, 1 block, {RAG_TOKENS} tokens")
+    passages = [f"synthetic passage number {i} about topic {i % 7}"
+                for i in range(RAG_DOCS)]
+    question = "synthetic passage about topic 3"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start = _shape_counts()
+    t0 = time.perf_counter()
+    rag = EncryptedRag(passages, retrieval_mode="row", d=D, f=F, n_blocks=1,
+                       gen_n=N, device=DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    res = rag.answer(question, num_tokens=RAG_TOKENS, verbose=False)
+    torch.cuda.synchronize()
+    counts = _counts()
+    new_hists["rag"] = _hist_since(start)
+    plain_top = int(np.argmax(rag.retriever.plaintext_scores(question)))
+    log(f"  [rag] init {t_init:.2f}s (index + model + server pre-encode); "
+        f"retrieved #{res['passage_idx']} (plaintext top-1 #{plain_top}) in "
+        f"{res['retrieval_s']:.3f}s; prefill {res['prefill_s']:.2f}s; tokens "
+        + ", ".join(f"{t:.3f}s" for t in res["token_s"])
+        + f" fhe {res['tokens']} plaintext {res['plaintext_tokens']}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    if res["passage_idx"] != plain_top or \
+            res["tokens"] != res["plaintext_tokens"]:
+        raise AssertionError(f"rag: off its plaintext twin: {res}")
+    _must_launch_ntt("rag", counts)
+    del rag
+    torch.cuda.empty_cache()
+    return counts, {"retrieval_s": res["retrieval_s"],
+                    "token_s": res["token_s"], "init_s": t_init}
+
+
+def _fe_weights():
+    """bench_fully_enc's weights (default_rng(42), key then value per
+    block) and x0 (default_rng(4242)) for the first FE_BLOCKS blocks."""
+    import numpy as np
+
+    rng = np.random.default_rng(42)
+    wk, wv = [], []
+    for _ in range(FE_BLOCKS):
+        wk.append(rng.standard_normal((D, F)) / np.sqrt(D))
+        wv.append(rng.standard_normal((F, D)) / np.sqrt(F))
+    return wk, wv, np.random.default_rng(4242).uniform(-1, 1, D)
+
+
+def _fe_run(tag, ctx, eng, wk, wv, x0, hosts, corr_bar, err_bar):
+    """One pass of run_fully_encrypted with the K1/K2 launches of each
+    block by shape; every block held to the plaintext oracle."""
+    import torch
+
+    from fhe_spear_tpu_torch.models.fully_encrypted import \
+        run_fully_encrypted
+
+    snaps = []
+
+    def on_log(msg):
+        log(f"  [{tag}] {msg.strip()}")
+        if msg.strip().startswith("block "):
+            snaps.append(_shape_counts())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = _shape_counts()
+    stats = run_fully_encrypted(ctx, wk, wv, x0, pre_encoded=hosts, eng=eng,
+                                calibrated=True, verbose=False, log_fn=on_log)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prev = start
+    for i, snap in enumerate(snaps):
+        hist = {k: {s: c - prev[k].get(s, 0) for s, c in snap[k].items()
+                    if c - prev[k].get(s, 0)} for k in NTT_KERNELS}
+        log(f"  [{tag}] block {i} launches: " + " ".join(
+            f"{k}={sum(hist[k].values())}" for k in NTT_KERNELS))
+        _log_hist(tag, hist)
+        prev = snap
+    if len(stats) != len(hosts):
+        raise AssertionError(f"{tag}: {len(stats)} of {len(hosts)} blocks ran")
+    for st in stats:
+        if not (st["corr"] > corr_bar and st["max_err"] < err_bar):
+            raise AssertionError(f"{tag}: block off the plaintext oracle "
+                                 f"(corr > {corr_bar}, max_err < {err_bar}): "
+                                 f"{stats}")
+    log(f"  [{tag}] peak device memory {peak:.2f} GiB")
+    return stats, peak
+
+
+def phase_fullenc(new_hists):
+    """The fully-encrypted FFN chain at full width (depth cut), then one
+    width-2 block."""
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.models.fully_encrypted import (
+        FullyEncryptedFfn, calibrate_magnitude, fe_level_schedule,
+        pre_encode_blocks)
+
+    t0 = time.perf_counter()
+    wk, wv, x0 = _fe_weights()
+    wk, wv = calibrate_magnitude(wk, wv, x0)
+    log(f"fullenc: D={D} F={F} N={N}, {FE_BLOCKS} blocks, L={FE_L} K={FE_K} "
+        f"dnum={FE_DNUM}, i32 staging ({time.perf_counter() - t0:.2f}s "
+        "weights + calibration)")
+    _reset_counts()
+    start = _shape_counts()
+    t0 = time.perf_counter()
+    ctx = CkksContext(CkksParams(n=N, num_limbs=FE_L, num_special=FE_K,
+                                 dnum=FE_DNUM), seed=0, device=DEVICE)
+    eng = FullyEncryptedFfn(ctx, D, F, stage_mode="i32")
+    torch.cuda.synchronize()
+    log(f"  keygen: {time.perf_counter() - t0:.2f}s ({ctx.dnum} digits of "
+        f"{ctx.gsize} limbs, {len(ctx.galois_keys)} Galois keys; "
+        f"{ctx.params.security_statement()})")
+    levels = fe_level_schedule(FE_L, FE_BLOCKS)
+    if levels != [11, 8, 5]:
+        raise AssertionError(f"fe_level_schedule: {levels}")
+    t0 = time.perf_counter()
+    hosts = pre_encode_blocks(eng, wk, wv, levels=levels)
+    log(f"  pre-encode ({FE_BLOCKS} blocks at levels {levels}): "
+        f"{time.perf_counter() - t0:.2f}s")
+    passes = []
+    for ps in range(2):
+        t0 = time.perf_counter()
+        stats, peak = _fe_run(f"fullenc pass {ps}", ctx, eng, wk, wv, x0,
+                              hosts, FE_CORR, FE_ERR)
+        passes.append({"stats": stats, "peak_gib": peak,
+                       "total_s": time.perf_counter() - t0})
+    sec = [s["sec"] for s in passes[-1]["stats"]]
+    log(f"  [fullenc] s/block (pass 1): " + ", ".join(f"{x:.3f}" for x in sec)
+        + f"; mean {float(np.mean(sec)):.3f}; corr "
+        + ", ".join(f"{s['corr']:.9f}" for s in passes[-1]["stats"])
+        + "; max_err " + ", ".join(f"{s['max_err']:.2e}"
+                                   for s in passes[-1]["stats"]))
+    del eng, hosts, ctx
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ctx2 = CkksContext(CkksParams(n=N, num_limbs=FE_W2_L, num_special=FE_K,
+                                  dnum=FE_DNUM), seed=0, device=DEVICE)
+    eng2 = FullyEncryptedFfn(ctx2, D, F, stage_mode="i32", width=2)
+    lv2 = fe_level_schedule(FE_W2_L, 1, width=2)
+    hosts2 = pre_encode_blocks(eng2, wk[:1], wv[:1], levels=lv2)
+    log(f"  width 2: L={FE_W2_L}, keygen + wide pre-encode at levels {lv2}: "
+        f"{time.perf_counter() - t0:.2f}s")
+    stats2, peak2 = _fe_run("fullenc width 2", ctx2, eng2, wk[:1], wv[:1], x0,
+                            hosts2, FE_W2_CORR, FE_W2_ERR)
+    torch.cuda.synchronize()
+    counts = _counts()
+    new_hists["fullenc"] = _hist_since(start)
+    log(f"  [fullenc] launches {counts}")
+    _must_launch_ntt("fullenc", counts)
+    del eng2, hosts2, ctx2
+    torch.cuda.empty_cache()
+    return counts, {"passes": passes, "width2": stats2, "width2_peak_gib":
+                    peak2}
+
+
+def phase_new_shapes(new_hists, timing):
+    """Hold K1/K2 bitwise (plain and fused entry points) at the largest
+    shape (most polynomials, then most launches) each new path launched,
+    and time them there (plain version: median of 5)."""
+    import torch
+
+    from fhe_spear_tpu_torch.core.ntt import NttContext
+    from fhe_spear_tpu_torch.core.primes import find_ntt_primes
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    picks = []
+    for tag, hist in new_hists.items():
+        for name in NTT_KERNELS:
+            (B, R, n), cnt = max(hist[name].items(),
+                                 key=lambda kv: (kv[0][0] * kv[0][1], kv[1]))
+            picks.append((tag, name, B, R, n, cnt))
+    rows_by_n = {}
+    for _, _, _, R, n, _ in picks:
+        rows_by_n[n] = max(rows_by_n.get(n, 0), R)
+    ctxs = {n: NttContext.build(n, find_ntt_primes(n, R), device="cuda")
+            for n, R in rows_by_n.items()}
+    log("new shapes: K1/K2 at the largest shape each new path launched, "
+        "held bitwise first")
+    for tag, name, B, R, n, cnt in picks:
+        t = _time_kernel(name, ctxs[n], None, B, tuple(range(R)), gen,
+                         plain_runs=5)
+        t["launches"], t["path"] = cnt, tag
+        timing[name].setdefault("largest_by_path", []).append(t)
+        log(f"    ({tag}: {cnt} launches at this shape)")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
@@ -665,9 +1033,21 @@ def main(argv=None):
     if "--kernels-only" in argv:
         log(json.dumps({"kernel_timing": timing}))
         return
-    hists = {}
+    hists, new_hists, split = {}, {}, {}
+    t0 = time.perf_counter()
     counts = phase_paths(hists)
+    split["generation paths"] = time.perf_counter() - t0
+    results = {}
+    for tag, phase in (("retrieval", phase_retrieval), ("rag", phase_rag),
+                       ("fullenc", phase_fullenc)):
+        t0 = time.perf_counter()
+        counts[tag], results[tag] = phase(new_hists)
+        split[tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_shapes(kctx, kfsb, hists, timing)
+    phase_new_shapes(new_hists, timing)
+    split["shapes"] = time.perf_counter() - t0
+    log("phase split: " + ", ".join(f"{k} {v:.1f}s" for k, v in split.items()))
     # launches: K1/K2 from the first slice's path (classic fused
     # transport), the four-step pair from this slice's (device client on
     # the mxu backend); every phase's counts are in launches_by_path
@@ -696,7 +1076,8 @@ def main(argv=None):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "shape": t["shape"], "by_shape": t["by_shape"],
-            "excess_ms_per_token": t["excess_ms_per_token"]})
+            "excess_ms_per_token": t["excess_ms_per_token"],
+            "largest_by_path": t.get("largest_by_path", [])})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,9 +26,13 @@ reader can find each module's twin.  Rules of the port:
 Ported so far: client-aided RWKV-7 generation on the classic transport
 (`models.client_aided.run_generation`, its batched streams variant
 `run_generation_batched`, `python -m fhe_spear_tpu_torch generate`) and
-on the device-resident client (`models.device_client`), the benchmarks
-`python -m fhe_spear_tpu_torch.bench` / `.bench_streams`, and both NTT
-backends: the bit-reversed Stockham transform (CUDA kernels in
+on the device-resident client (`models.device_client`); encrypted
+retrieval (`ops.retrieval`, `apps.demo`, `python -m fhe_spear_tpu_torch
+retrieval`) and encrypted RAG (`apps.rag`); the fully-encrypted FFN chain
+with the dnum-grouped hybrid keyswitch (`models.fully_encrypted`,
+`python -m fhe_spear_tpu_torch fullenc`); the benchmarks `python -m
+fhe_spear_tpu_torch.bench` / `.bench_streams` / `.bench_retrieval` /
+`.bench_fully_enc`; and both NTT backends: the bit-reversed Stockham transform (CUDA kernels in
 `csrc/ntt.cu`, wrapped by `core/ntt_cuda.py`) and the natural-order
 four-step transform of `ntt_backend="mxu"` (`parallel/ntt_fourstep.py`,
 CUDA kernels in `csrc/fourstep.cu`, wrapped by `core/fourstep_cuda.py`).

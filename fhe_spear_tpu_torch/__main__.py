@@ -1,10 +1,12 @@
 """Command-line entry point of the port:
 
+  python -m fhe_spear_tpu_torch retrieval  # encrypted retrieval demo/benchmark
   python -m fhe_spear_tpu_torch generate   # client-aided RWKV-7 generation
+  python -m fhe_spear_tpu_torch fullenc    # fully-encrypted FFN chain
 
-The flags are those of `python -m fhe_spear_tpu generate`, plus --device
-(default cuda).  The other subcommands of the reference arrive with their
-slices.
+The flags are those of the same subcommands of `python -m fhe_spear_tpu`,
+plus --device (default cuda; cpu runs the plain torch path).  The other
+subcommands of the reference arrive with their slices.
 """
 
 from __future__ import annotations
@@ -26,6 +28,20 @@ def _ctx(n, limbs, specials, seed, device):
     return ctx
 
 
+def cmd_retrieval(args):
+    from .apps.demo import recall_benchmark, run_demo
+
+    if args.recall:
+        out = recall_benchmark(n_docs=args.n_docs, mode=args.mode,
+                               device=args.device)
+        print(f"retrieval R@1/5/10: {out['recall@1']:.2f}/"
+              f"{out['recall@5']:.2f}/{out['recall@10']:.2f}")
+        return
+    agree, n_q = run_demo(n_docs=args.n_docs, mode=args.mode,
+                          device=args.device)
+    print(f"retrieval: {agree}/{n_q} encrypted top-1 matches plaintext")
+
+
 def cmd_generate(args):
     from .models.client_aided import run_generation
     from .models.rwkv7 import load_torch_model, make_random_model
@@ -44,9 +60,38 @@ def cmd_generate(args):
           f"mean {np.mean([r['sec'] for r in results]):.2f}s/token")
 
 
+def cmd_fullenc(args):
+    from .models.fully_encrypted import run_fully_encrypted
+
+    rng = np.random.default_rng(args.seed)
+    wk = [rng.normal(0, 0.02, (args.d, args.f)) for _ in range(args.blocks)]
+    wv = [rng.normal(0, 0.02, (args.f, args.d)) for _ in range(args.blocks)]
+    x0 = rng.normal(0, 0.1, args.d)
+    ctx = _ctx(args.n, args.l0, args.specials, args.seed, args.device)
+    stats = run_fully_encrypted(ctx, wk, wv, x0)
+    if stats:
+        print(f"fullenc: {len(stats)} blocks, final corr "
+              f"{stats[-1]['corr']:.8f}, "
+              f"{np.mean([s['sec'] for s in stats]):.2f}s/block")
+
+
+def _device_flag(parser):
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the plain "
+                             "torch path)")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="fhe_spear_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    r = sub.add_parser("retrieval")
+    r.add_argument("--n_docs", type=int, default=64)
+    r.add_argument("--mode", choices=["row", "column"], default="row")
+    r.add_argument("--recall", action="store_true",
+                   help="R@k benchmark (gold+distractor protocol)")
+    _device_flag(r)
+    r.set_defaults(fn=cmd_retrieval)
 
     g = sub.add_parser("generate")
     g.add_argument("--d", type=int, default=1024)
@@ -62,10 +107,19 @@ def main(argv=None):
     g.add_argument("--seed", type=int, default=42)
     g.add_argument("--no-fused", action="store_true",
                    help="explicit ciphertext transport (host randomness)")
-    g.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                        "torch path)")
+    _device_flag(g)
     g.set_defaults(fn=cmd_generate)
+
+    f = sub.add_parser("fullenc")
+    f.add_argument("--d", type=int, default=2048)
+    f.add_argument("--f", type=int, default=4096)
+    f.add_argument("--blocks", type=int, default=8)
+    f.add_argument("--l0", type=int, default=26)
+    f.add_argument("--n", type=int, default=16384)
+    f.add_argument("--specials", type=int, default=1)
+    f.add_argument("--seed", type=int, default=42)
+    _device_flag(f)
+    f.set_defaults(fn=cmd_fullenc)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -7,10 +7,12 @@ canonical in [0, p); operations are plain torch functions on those
 tensors, and every transform goes through `NttContext.ntt`/`intt` (the
 CUDA kernels on the card, the plain torch loop on the CPU).
 
-  * Keyswitching is GHS/hybrid with single-limb digits and K special
-    primes: the same key tensor works at every level, decomposition is a
-    centered re-reduction, and the digit * key contraction is one
-    multiply-accumulate over the digit axis.
+  * Keyswitching is GHS/hybrid with K special primes: the same key tensor
+    works at every level and the digit * key contraction is one
+    multiply-accumulate over the digit axis.  Digits are single limbs
+    (decomposition is a centered re-reduction) or, with `dnum`, groups of
+    `gsize` limbs (decomposition is a fast base conversion with a 32-bit
+    fixed-point centring, `_fbc_digits`).
   * Decryption never needs multiprecision CRT: the message magnitude is
     kept below q0/2, so the first one or two limbs of c0 + c1*s determine
     the value exactly.
@@ -18,9 +20,10 @@ CUDA kernels on the card, the plain torch loop on the CPU).
 Key identities (decrypt = c0 + c1*s):
   symmetric encrypt:  c1 = a (uniform),  c0 = -a*s + m + e
   keyswitch digit j:  ksk_j = (-a_j*s + e_j + P*g_j*s', a_j) over Q*P,
-      where per limb g_j is delta_{ij} * (P mod q_j).
+      where g_j is (P mod q_i) on the limbs i of digit j, 0 elsewhere.
   switched ct adds (sum_j D_j * ksk_j) / P  with D_j the centered
-      re-reductions of the source polynomial's limb-j coefficients.
+      re-reduction of the source polynomial's limb j (single-limb digits)
+      or the fast base conversion of its limb group j.
 
 Montgomery bookkeeping: ciphertexts/plaintexts are Mont-form (x*R).
 Keyswitch keys are stored in R^2 form so that mont_mul(plain_digit, key)
@@ -35,8 +38,8 @@ bit.  Sums of canonical residues are taken exactly in int64 and reduced
 once (`% p`), which gives the same canonical word as the reference's
 chains of modular adds.
 
-Left out until a later slice: dnum > 1 grouped digits, `drop_galois_keys`,
-`identity_ksk`, `shard_eval_keys`.
+Left out until a later slice: `identity_ksk`, `shard_eval_keys`,
+`decrypt_slot0`.
 """
 
 from __future__ import annotations
@@ -70,7 +73,9 @@ class CkksParams:
     num_special:  K special (keyswitch) primes.
     scale_bits:   log2 of the default scale (rescale primes sit near it).
     secret_hamming_weight: sparse ternary secret weight; None = dense.
-    dnum:         digit count; only None (one digit per limb) is ported.
+    dnum:         hybrid-keyswitch digit count: groups of ceil(L/dnum) limbs
+                  (needs P = prod(special primes) >= every group product);
+                  None = one digit per limb.
     ntt_backend:  "stockham" or "pallas" -- in the port both name the same
                   bit-reversed transform, run by kernels K1/K2 on the card;
                   "mxu": the four-step transform in natural bin order
@@ -150,7 +155,7 @@ class CkksParams:
 
 class KeySwitchKey:
     """b, a: [dnum, L+K, N] int64, NTT domain, R^2 form (digit, limb,
-    coeff); dnum = L since digits are single limbs."""
+    coeff); dnum = L when digits are single limbs."""
 
     def __init__(self, b: torch.Tensor, a: torch.Tensor):
         self.b = b
@@ -207,11 +212,23 @@ class CkksContext:
             P *= pr.p
         self.P_int = P
 
+        # hybrid-keyswitch digit grouping: gsize limbs per digit
         self.dnum = params.dnum if params.dnum else self.L
-        if self.dnum != self.L:
-            raise NotImplementedError(
-                "dnum > 1 grouped keyswitch digits are not ported yet")
-        self.gsize = 1
+        assert 1 <= self.dnum <= self.L, (self.dnum, self.L)
+        self.gsize = -(-self.L // self.dnum)
+        self.digit_of_limb = np.arange(self.L) // self.gsize
+        self.dnum = int(self.digit_of_limb[-1]) + 1  # actual digit count
+        if self.gsize > 1:
+            # keyswitch noise ~ sigma*sqrt(dnum*N)*Q_j/P: require P >= Q_j
+            for j in range(self.dnum):
+                qj = 1
+                for i in range(j * self.gsize,
+                               min((j + 1) * self.gsize, self.L)):
+                    qj *= int(q[i])
+                assert P >= qj, (
+                    f"digit group {j} product ({qj.bit_length()} bits) "
+                    f"exceeds P ({P.bit_length()} bits): raise num_special "
+                    f"or dnum")
 
         dev = self.device
         i64 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64),
@@ -258,6 +275,7 @@ class CkksContext:
         self._qlinv = i64(qlinv)
         self._idx_cache: dict = {}
         self._perm_cache: dict = {}
+        self._digit_cache: dict = {}
 
         # --- keys (host draw order of the reference) ---
         h = params.secret_hamming_weight
@@ -341,7 +359,25 @@ class CkksContext:
 
     def num_digits(self, l: int) -> int:
         """Active keyswitch digits at level l (= l for single-limb digits)."""
-        return l
+        return -(-l // self.gsize)
+
+    def drop_galois_keys(self, drop=None, keep=()) -> int:
+        """Free raw per-element Galois keys once every engine has built its
+        stacked copies (`BsgsMatvec.warm_stacks`): kernels evaluate from
+        the stacks only.  The conjugation key (element 2n-1) is always
+        kept, plus anything in `keep`.  drop=None drops everything else;
+        otherwise only the given elements.  A later ensure_galois for a
+        dropped element regenerates it (fresh randomness).  Returns the
+        number of keys dropped."""
+        always_keep = set(keep) | {2 * self.n - 1}
+        elts = list(self.galois_keys) if drop is None else list(drop)
+        n_drop = 0
+        for g in elts:
+            if g in always_keep or g not in self.galois_keys:
+                continue
+            del self.galois_keys[g]
+            n_drop += 1
+        return n_drop
 
     def _build_ksk(self, a: torch.Tensor, e: torch.Tensor,
                    sprime_eval: torch.Tensor) -> KeySwitchKey:
@@ -352,12 +388,15 @@ class CkksContext:
         e_ev = ntt.ntt_to_mont(e, all_rows)
         b = add_mod(neg_mod(mont_mul(a, self.s_eval, ntt.p, ntt.pinv), ntt.p),
                     e_ev, ntt.p)
-        # digit j carries (P mod q_j) * s' on limb j (zero elsewhere and on
-        # the specials, since P | P*g_j there)
+        # digit j carries (P mod q_i) * s' on every limb i of group j (zero
+        # on other limbs and on the specials, since P | P*g_j there)
         msg = mont_mul(sprime_eval[..., : self.L, :], self.Pmod_mont,
                        ntt.p[: self.L], ntt.pinv[: self.L])   # [..., L, N]
-        j = torch.arange(self.L, device=self.device)
-        b[..., j, j, :] = add_mod(b[..., j, j, :], msg, ntt.p[: self.L])
+        dof = torch.as_tensor(self.digit_of_limb, dtype=torch.long,
+                              device=self.device)
+        limb = torch.arange(self.L, device=self.device)
+        b[..., dof, limb, :] = add_mod(b[..., dof, limb, :], msg,
+                                       ntt.p[: self.L])
         return KeySwitchKey(ntt.to_mont(b, all_rows), ntt.to_mont(a, all_rows))
 
     def _make_ksk(self, sprime_eval: torch.Tensor) -> KeySwitchKey:
@@ -407,6 +446,25 @@ class CkksContext:
                                      wide=scale > 2.0 ** 31)
         return Plaintext(self._to_eval_mont(coeffs, tuple(range(level))),
                          scale)
+
+    def encode_const(self, c: complex, level: int | None = None,
+                     scale: float | None = None) -> Plaintext:
+        """Exact constant plaintext at any scale: c occupies coefficient 0
+        (Re) and coefficient N/2 (Im) only -- X^(N/2) evaluates to i in
+        every slot -- and the residues are reduced with python ints, so
+        wide scales (beyond the encoder's 2^31 word) stay exact."""
+        level = self.L if level is None else level
+        scale = self.scale if scale is None else scale
+        c = complex(c)
+        vre = int(round(c.real * scale))
+        vim = int(round(c.imag * scale))
+        res = np.zeros((level, self.n), dtype=np.int64)
+        for i in range(level):
+            q = int(self.q_np[i])
+            res[i, 0] = vre % q
+            res[i, self.n // 2] = vim % q
+        return Plaintext(self.ntt.ntt_to_mont(self._tensor(res),
+                                              tuple(range(level))), scale)
 
     def encrypt(self, vec, level: int | None = None, scale: float | None = None
                 ) -> Ciphertext:
@@ -536,6 +594,33 @@ class CkksContext:
         p, pinv = self._p(l)
         return Ciphertext(mont_mul(x.c, const, p, pinv), x.scale * scale)
 
+    def scale_to(self, x: Ciphertext, target: float | None = None,
+                 exact: bool = False) -> Ciphertext:
+        """Normalize x to scale exactly `target` (default ctx.scale) by one
+        adjusting scalar multiply + as many rescales as needed.  exact=True
+        narrows the retag shortcut from 1e-4 to float-ulp (a chain of CT-CT
+        squares doubles a retag's deviation per block)."""
+        target = self.scale if target is None else target
+        tol = 1e-12 if exact else 1e-4
+        if abs(x.scale - target) <= tol * target:
+            return Ciphertext(x.c, target)
+        # k rescales so the adjusting factor is >= 2^20 (scalar rounding
+        # error then <= 2^-21)
+        prod, k = 1.0, 0
+        while target * prod / x.scale < (1 << 20) and k < x.level - 1:
+            k += 1
+            prod *= float(self.q_np[x.level - k])
+        adj = target * prod / x.scale
+        assert adj >= 1.0, (x.scale, target, "scale gap too large to bridge")
+        # split into factors < 2^31 (several scalar mults, no extra level)
+        while adj > float(1 << 30):
+            x = self.mul_scalar(x, 1.0, scale=float(1 << 24))
+            adj /= float(1 << 24)
+        x = self.mul_scalar(x, 1.0, scale=adj)
+        for _ in range(k):
+            x = self.rescale(x)
+        return Ciphertext(x.c, target)
+
     def multiply(self, x: Ciphertext, y: Ciphertext, relin: bool = True
                  ) -> Ciphertext:
         """CT x CT multiply (+ relinearize)."""
@@ -556,6 +641,9 @@ class CkksContext:
         c = torch.stack([add_mod(d0, ks[..., 0, :, :], p),
                          add_mod(d1, ks[..., 1, :, :], p)], dim=-3)
         return Ciphertext(c, x.scale * y.scale)
+
+    def square(self, x: Ciphertext) -> Ciphertext:
+        return self.multiply(x, x)
 
     def rescale(self, x: Ciphertext) -> Ciphertext:
         l = x.level
@@ -583,6 +671,9 @@ class CkksContext:
         assert level <= x.level
         return self.mod_drop(x, x.level - level) if level < x.level else x
 
+    def set_scale(self, x: Ciphertext, scale: float) -> Ciphertext:
+        return Ciphertext(x.c, float(scale))
+
     # ------------------------------------------------------------------
     # keyswitch internals
     # ------------------------------------------------------------------
@@ -600,14 +691,100 @@ class CkksContext:
         r_neg = cond_sub(r + (p_t - qm), p_t)
         return torch.where(c >= self._sel(self.q_half, src_rows), r_neg, r)
 
+    def _digit_tables(self, l: int) -> dict:
+        """Constants of the grouped fast base conversion at level l (built
+        once per level).  Group j's active members are limbs
+        [j*g, min((j+1)*g, l)); ragged groups are zero-padded to g (their
+        hatinv/muA/B64/qhat are 0, and limb_idx clips to l-1)."""
+        tb = self._digit_cache.get(l)
+        if tb is not None:
+            return tb
+        g, d_l = self.gsize, self.num_digits(l)
+        tgt = self.targets(l)
+        T = len(tgt)
+        q = self.q_np
+        r_of = lambda i: self.primes[i].mont_r
+
+        limb_idx = np.zeros((d_l, g), dtype=np.int64)
+        hatinv_r = np.zeros((d_l, g, 1), dtype=np.int64)
+        muA = np.zeros((d_l, g, 1), dtype=np.int64)
+        B64 = np.zeros((d_l, g, 1), dtype=np.int64)
+        qhat_r = np.zeros((d_l, g, T, 1), dtype=np.int64)
+        qj_r = np.zeros((d_l, T, 1), dtype=np.int64)
+        for j in range(d_l):
+            mem = list(range(j * g, min((j + 1) * g, l)))
+            qj = 1
+            for i in mem:
+                qj *= int(q[i])
+            for t_i, t in enumerate(tgt):
+                qj_r[j, t_i, 0] = qj % int(q[t]) * r_of(t) % int(q[t])
+            for m_i, i in enumerate(mem):
+                limb_idx[j, m_i] = i
+                qhat = qj // int(q[i])
+                hatinv_r[j, m_i, 0] = (pow(qhat % int(q[i]), -1, int(q[i]))
+                                       * r_of(i) % int(q[i]))
+                muA[j, m_i, 0] = (1 << 32) // int(q[i])
+                B64[j, m_i, 0] = ((1 << 64) // int(q[i])) & MASK32
+                for t_i, t in enumerate(tgt):
+                    qhat_r[j, m_i, t_i, 0] = (qhat % int(q[t]) * r_of(t)
+                                              % int(q[t]))
+        li = np.clip(limb_idx, 0, l - 1)
+        p_np = self.q_np.astype(np.int64)
+        pinv_np = np.array([pr.mont_pinv for pr in self.primes],
+                           dtype=np.int64)
+        tb = {"limb_idx": li, "hatinv_r": hatinv_r,
+              "p_mem": p_np[li][..., None], "pinv_mem": pinv_np[li][..., None],
+              "muA": muA, "B64": B64, "qhat_r": qhat_r, "qj_r": qj_r}
+        tb = {k: self._tensor(v) for k, v in tb.items()}
+        self._digit_cache[l] = tb
+        return tb
+
+    def _fbc_digits(self, coeffs: torch.Tensor, l: int) -> torch.Tensor:
+        """Grouped digits via approximate-centered fast base conversion.
+
+        coeffs: [..., l, N] plain coefficient-domain residues.  Returns
+        [..., d_l, T, N]: for each group j an integer representative of
+        c mod Q_j extended to all target limbs.  The centring correction
+        v = round(sum_i y_i / q_i) is the reference's 32-bit fixed point:
+        u_i = (y_i*muA + mulhi(y_i, B64)) mod 2^32, and v = hi + (lo >> 31)
+        of the wrapping (hi, lo) sum, which the exact int64 sum of the u_i
+        holds bit for bit.  An off-by-one v changes the representative by
+        Q_j (a rare, bounded noise increment since P >= Q_j)."""
+        tb = self._digit_tables(l)
+        tgt = self.targets(l)
+        p_t, pinv_t = self._sel(self.ntt.p, tgt), self._sel(self.ntt.pinv, tgt)
+        # y_i = [c * Qhat_i^-1]_{q_i}, zero on padded members
+        y = coeffs.index_select(-2, tb["limb_idx"].reshape(-1))
+        y = y.reshape(coeffs.shape[:-2] + tuple(tb["limb_idx"].shape)
+                      + (self.n,))                          # [..., d_l, g, N]
+        y = mont_mul(y, tb["hatinv_r"], tb["p_mem"], tb["pinv_mem"])
+        u = (mul_lo_u32(y, tb["muA"]) + mul_hi_u32(y, tb["B64"])) & MASK32
+        tot = u.sum(dim=-2)
+        v = (tot >> 32) + ((tot & MASK32) >> 31)               # [..., d_l, N]
+        # D_j[t] = sum_i y_i * Qhat_i - v * Q_j  (mod q_t); one member at a
+        # time bounds the transient to one [..., d_l, T, N] product
+        acc = None
+        for i in range(self.gsize):
+            prod = mont_mul(y[..., i, None, :], tb["qhat_r"][:, i], p_t,
+                            pinv_t)
+            acc = prod if acc is None else acc + prod
+        acc = acc % p_t
+        vq = mont_mul(v[..., None, :], tb["qj_r"], p_t, pinv_t)
+        return sub_mod(acc, vq, p_t)
+
     def _decompose(self, c1: torch.Tensor, l: int) -> torch.Tensor:
-        """[..., l, N] Mont eval -> extended digits [..., l, T, N], plain,
-        eval."""
+        """[..., l, N] Mont eval -> extended digits [..., d_l, T, N], plain,
+        eval (d_l = l for single-limb digits, ceil(l/gsize) when dnum is
+        set)."""
         ntt = self.ntt
         rows = tuple(range(l))
         tgt = self.targets(l)
         coeffs = ntt.intt_from_mont(c1, rows)
-        return ntt.ntt(self._extend_centered(coeffs, rows, tgt), tgt)
+        if self.gsize == 1:
+            D = self._extend_centered(coeffs, rows, tgt)
+        else:
+            D = self._fbc_digits(coeffs, l)
+        return ntt.ntt(D, tgt)
 
     def select_key(self, ksk: KeySwitchKey, l: int):
         """Slice a keyswitch key down to the digits/rows active at level l."""

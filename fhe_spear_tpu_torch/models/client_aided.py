@@ -41,39 +41,14 @@ from ..ckks.ciphertext import Ciphertext
 from ..ckks.context import CkksContext
 from ..core.modops import add_mod, barrett_reduce, mont_mul, neg_mod
 from ..native import encode_i32
-from ..ops.bsgs import BsgsMatvec, _load_coeffs, rns_expand
+from ..ops.bsgs import BsgsMatvec, _load_coeffs, bsgs_kernel, rns_expand
 from .rwkv7 import (
     RwkvModel, RwkvState, generate_token_plaintext, layer_norm, token_mix,
     wkv7_client,
 )
 
 __all__ = ["FheRwkvServer", "FheRwkvClient", "FheRwkvBatchedClient",
-           "run_generation", "run_generation_batched", "bsgs_kernel",
-           "encrypt_on_device"]
-
-
-def bsgs_kernel(eng: BsgsMatvec, l: int, mode: str, i32: bool):
-    """kern(c, pt) for one transport shape:
-      "single":  c [2, l, N] against one matrix;
-      "shared":  one c against stacked matrices pt [P, ...] (the baby
-                 rotations are computed once and shared);
-      "batched": c [P, 2, l, N] against matching matrices pt [P, ...].
-    Matrices run one after another, so only one matrix's expanded residues
-    are live at a time in i32 staging (pt int32 coefficients)."""
-    bp, bkb, bka, gp, gkb, gka = eng._xs(l)
-
-    def one(babies, pt):
-        return eng.giants(babies, pt, l, gp, gkb, gka, i32=i32)
-
-    def kern(c, pt):
-        if mode == "single":
-            return one(eng.babies(c, l, bp, bkb, bka), pt)
-        if mode == "shared":
-            babies = eng.babies(c, l, bp, bkb, bka)
-            return torch.stack([one(babies, q) for q in pt])
-        return torch.stack([one(eng.babies(cq, l, bp, bkb, bka), q)
-                            for cq, q in zip(c, pt)])
-    return kern
+           "run_generation", "run_generation_batched", "encrypt_on_device"]
 
 
 def _generator(device, seed: int) -> torch.Generator:

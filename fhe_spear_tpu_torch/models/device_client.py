@@ -27,7 +27,7 @@ device between its blocks.
 
 What the reference needed and the port does not: the token is one jitted
 `lax.scan` over blocks there and a Python loop over blocks here; `vmap`
-over projections becomes `client_aided.bsgs_kernel`'s "batched" and
+over projections becomes `ops.bsgs.bsgs_kernel`'s "batched" and
 "shared" modes, and `vmap` over streams a leading stream axis; the remote
 TPU's workarounds (host-only complex tables, in-jit key derivation, numpy
 arguments) have no counterpart.
@@ -45,9 +45,8 @@ import torch
 
 from ..ckks.context import CkksContext
 from ..core.modops import add_mod, mont_mul
-from ..ops.bsgs import BsgsMatvec
-from .client_aided import _chunk_pairs, _generator, bsgs_kernel, \
-    encrypt_on_device
+from ..ops.bsgs import BsgsMatvec, bsgs_kernel
+from .client_aided import _chunk_pairs, _generator, encrypt_on_device
 from .rwkv7 import RwkvModel, RwkvState, generate_token_plaintext, layer_norm
 
 __all__ = ["PRESCALE", "DeviceTokenRunner", "run_generation_device"]

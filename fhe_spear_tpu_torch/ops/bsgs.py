@@ -2,18 +2,24 @@
 client-aided path.
 
 Counterpart of `fhe_spear_tpu/ops/bsgs.py` (square-matrix engine,
-"fused" contraction layout).
+"fused" contraction layout, full key stacks, wide staging).
 
   * Baby rotations are hoisted (one digit decomposition) and evaluated as
     ONE batched keyswitch over a stacked [G-1, ...] tensor of rotation keys
-    and automorphism permutations.
+    and automorphism permutations -- in pieces where the rotated digits of
+    all G-1 would pass `BABY_DIGIT_BYTES` (deep chains).
   * Giant groups run in chunks of FHE_GIANT_CHUNK (default 8): each chunk
     batches its diagonal expansion, its contraction against the G baby
     rotations, and its giant-rotation keyswitch.
   * Diagonals are pre-encoded on the host to coefficient-domain int32 and
     either expanded to NTT/Montgomery residues at block-load time
     ("expanded") or inside the kernel, one chunk of giant groups at a time
-    (i32 staging: a bounded transient regardless of B or l).
+    (i32 staging: a bounded transient regardless of B or l).  Composite
+    (width-2, ~2^56) scales stage two int32 planes per coefficient
+    (`encode_wide`, expanded in the kernel by `rns_expand_wide`).
+  * ONE level-independent stack of the full rotation keys; each call
+    selects its level's digits and target rows from it (a deep chain
+    walks ~20 levels).
   * Exactly one rescale at the end: 1 level per call.
 
 Sums of canonical residues are exact in int64 and reduced once (`% p`),
@@ -39,8 +45,21 @@ from ..ckks.context import CkksContext
 from ..core.modops import add_mod, mont_mul
 from ..native import encode_i32
 
-__all__ = ["bsgs_dims", "BsgsMatvec", "EncodedDiagonals", "extract_diagonals",
-           "rns_expand"]
+__all__ = ["bsgs_dims", "bsgs_kernel", "BsgsMatvec", "EncodedDiagonals",
+           "extract_diagonals", "rns_expand", "rns_expand_wide"]
+
+# rotated baby digits [S, d_l, T, N] int64 per batched keyswitch: the
+# keyswitch's transients are a few times this (1 GiB: one batch for every
+# L=3 path; pieces of ~15 of the 45 rotations at N=16384, l=57, 8 digits)
+BABY_DIGIT_BYTES = 1 << 30
+
+
+def _split_i64(coeffs: np.ndarray) -> np.ndarray:
+    """int64 [..., N] -> int32 planes [..., 2, N] with value =
+    hi*2^31 + lo, lo in [0, 2^31) (two's-complement exact for negatives)."""
+    lo = (coeffs & np.int64(0x7FFFFFFF)).astype(np.int32)
+    hi = (coeffs >> np.int64(31)).astype(np.int32)
+    return np.stack([lo, hi], axis=-2)
 
 
 def bsgs_dims(d: int) -> tuple[int, int]:
@@ -103,7 +122,20 @@ class BsgsMatvec:
         self.giant_steps = tuple(g * self.G for g in range(1, self.B))
         self.giant_chunk = max(1, int(os.environ.get("FHE_GIANT_CHUNK", "8")))
         ctx.ensure_galois(self.baby_steps + self.giant_steps)
-        self._xs_cache: dict = {}
+        self._full = None
+
+    def galois_elements(self) -> set:
+        """Galois elements of this engine's rotation steps (for
+        CkksContext.drop_galois_keys after warm_stacks)."""
+        return {self.ctx.galois_element(s)
+                for s in self.baby_steps + self.giant_steps}
+
+    def warm_stacks(self) -> set:
+        """Build the key stack now, so that the raw per-element keys can be
+        dropped (drop_galois_keys) before the memory peak of a deep run.
+        Returns galois_elements()."""
+        self._stacks()
+        return self.galois_elements()
 
     # -- host-side diagonal pre-encoding -----------------------------------
 
@@ -115,6 +147,20 @@ class BsgsMatvec:
         tiled = np.tile(diags, (1, 1, ctx.slots // self.d))     # [B, G, slots]
         return EncodedDiagonals(encode_i32(ctx.encoder, tiled, scale), scale,
                                 self.d)
+
+    def encode_wide(self, w: np.ndarray, scale: float) -> EncodedDiagonals:
+        """Composite-scale (width-2, ~2^56) diagonal pre-encode: int64
+        coefficients split into two int32 planes [B, G, 2, N] (value =
+        hi*2^31 + lo; see rns_expand_wide)."""
+        ctx = self.ctx
+        diags = extract_diagonals(w, self.d)
+        tiled = np.tile(diags, (1, 1, ctx.slots // self.d))
+        coeffs = np.round(ctx.encoder.embed(tiled) * scale).astype(np.int64)
+        limit = np.abs(coeffs).max(initial=0)
+        assert limit < (1 << 62), (
+            f"wide-encoded coefficient magnitude {limit} >= 2^62 "
+            f"(scale {scale:g})")
+        return EncodedDiagonals(_split_i64(coeffs), scale, self.d)
 
     # -- device staging ----------------------------------------------------
 
@@ -134,14 +180,26 @@ class BsgsMatvec:
         return Ciphertext(out, ct.scale * scale / float(self.ctx.q_np[l - 1]))
 
     def _xs(self, l: int):
-        """Stacked level-l rotation keys: (baby_perms [G-1, N], baby_kb,
-        baby_ka [G-1, d_l, T, N], giant_perms, giant_kb, giant_ka).
-        The cache holds at most 2 levels: each is a full copy of every
-        rotation key."""
-        if l not in self._xs_cache:
+        """Level-l rotation keys: (baby_perms [G-1, N], baby_kb, baby_ka
+        [G-1, d_l, T, N], giant_perms, giant_kb, giant_ka).  The level's
+        digits and target rows are selected from the one full stack on each
+        call (the caller holds the copy only while it runs; at the top level
+        the stack itself is returned)."""
+        ctx = self.ctx
+        d_l, tgt = ctx.num_digits(l), ctx.targets(l)
+        if d_l == ctx.dnum and len(tgt) == ctx.L + ctx.K:
+            return self._stacks()
+        idx = ctx._idx(tgt)
+        bp, bkb, bka, gp, gkb, gka = self._stacks()
+        sel = lambda k: k[:, :d_l].index_select(2, idx) if k.numel() else k
+        return bp, sel(bkb), sel(bka), gp, sel(gkb), sel(gka)
+
+    def _stacks(self):
+        """The automorphism permutations [S, N] and the full rotation keys
+        [S, dnum, L+K, N] of the baby and of the giant steps, stacked once:
+        a deep chain walks ~20 levels on one copy of the keys."""
+        if self._full is None:
             ctx = self.ctx
-            while len(self._xs_cache) >= 2:
-                self._xs_cache.pop(next(iter(self._xs_cache)))
 
             def stack_keys(steps):
                 gs = [ctx.galois_element(s) for s in steps]
@@ -149,33 +207,43 @@ class BsgsMatvec:
                     empty = torch.empty((0,), dtype=torch.long,
                                         device=ctx.device)
                     return (empty, empty, empty)
-                perms = torch.stack([ctx.perm(g) for g in gs])
-                kb, ka = zip(*(ctx.select_key(ctx.galois_keys[g], l)
-                               for g in gs))
-                return (perms, torch.stack(kb), torch.stack(ka))
+                keys = [ctx.galois_keys[g] for g in gs]
+                return (torch.stack([ctx.perm(g) for g in gs]),
+                        torch.stack([k.b for k in keys]),
+                        torch.stack([k.a for k in keys]))
 
-            self._xs_cache[l] = (stack_keys(self.baby_steps)
-                                 + stack_keys(self.giant_steps))
-        return self._xs_cache[l]
+            self._full = (stack_keys(self.baby_steps)
+                          + stack_keys(self.giant_steps))
+        return self._full
 
     def babies(self, c: torch.Tensor, l: int, bp, bkb, bka) -> torch.Tensor:
         """The G hoisted baby rotations of c [2, l, N] -> [G, 2, l, N]
-        (rotation 0 first), one batched keyswitch."""
+        (rotation 0 first): batched keyswitches of as many rotations as
+        BABY_DIGIT_BYTES of rotated digits allow."""
         if not self.baby_steps:
             return c[None]
         D1 = self.ctx._decompose(c[1], l)
-        rots = self.ctx.keyswitch_rotated(c, D1, bp, bkb, bka, l)
-        return torch.cat([c[None], rots])
+        bc = max(1, BABY_DIGIT_BYTES // (D1.numel() * D1.element_size()))
+        rots = [self.ctx.keyswitch_rotated(c, D1, bp[i:i + bc],
+                                           bkb[i:i + bc], bka[i:i + bc], l)
+                for i in range(0, len(self.baby_steps), bc)]
+        return torch.cat([c[None]] + rots)
 
     def giants(self, babies: torch.Tensor, pt: torch.Tensor, l: int,
-               gp, gkb, gka, i32: bool = False) -> torch.Tensor:
+               gp, gkb, gka, i32: bool = False, wide: bool = False
+               ) -> torch.Tensor:
         """sum_g rot_{gG}(sum_b babies[b] * pt[g, b]) for the giant groups of
-        pt ([B, G, l, N] residues, or [B, G, N] int32 coefficients when
-        i32), then the rescale -> [2, l-1, N]."""
+        pt ([B, G, l, N] residues; [B, G, N] int32 coefficients when i32;
+        [B, G, 2, N] int32 planes when wide), then the rescale ->
+        [2, l-1, N]."""
         ctx = self.ctx
         p, pinv = ctx._p(l)
-        expand = ((lambda ptg: rns_expand(ctx, ptg, l)) if i32
-                  else (lambda ptg: ptg))
+        if wide:
+            expand = lambda ptg: rns_expand_wide(ctx, ptg, l)
+        elif i32:
+            expand = lambda ptg: rns_expand(ctx, ptg, l)
+        else:
+            expand = lambda ptg: ptg
 
         def contract(ptg):
             """sum_b babies[b] * ptg[..., b]: [G, 2, l, N] x [..., G, l, N]
@@ -200,16 +268,42 @@ class BsgsMatvec:
             y = add_mod(y, part, p)
         return ctx._rescale_core(y, l)
 
-    def _kernel_raw(self, l: int, i32: bool = False):
+    def _kernel_raw(self, l: int, i32: bool = False, wide: bool = False):
         """kernel(c, pt, bp, bkb, bka, gp, gkb, gka) -> [2, l-1, N]: one
         ciphertext c [2, l, N] against one matrix pt.  i32=True: pt holds
         int32 coefficient encodings [B, G, N], RNS-expanded in chunks
-        inside the kernel."""
+        inside the kernel; wide=True: the two-plane format of
+        `encode_wide`."""
 
         def kernel(c, pt, bp, bkb, bka, gp, gkb, gka):
             return self.giants(self.babies(c, l, bp, bkb, bka), pt, l,
-                               gp, gkb, gka, i32=i32)
+                               gp, gkb, gka, i32=i32, wide=wide)
         return kernel
+
+
+def bsgs_kernel(eng: BsgsMatvec, l: int, mode: str, i32: bool = False,
+                wide: bool = False):
+    """kern(c, pt) for one transport shape:
+      "single":  c [2, l, N] against one matrix;
+      "shared":  one c against stacked matrices pt [P, ...] (the baby
+                 rotations are computed once and shared);
+      "batched": c [P, 2, l, N] against matching matrices pt [P, ...].
+    Matrices run one after another, so only one matrix's expanded residues
+    are live at a time in i32 and wide staging (int32 coefficients)."""
+    bp, bkb, bka, gp, gkb, gka = eng._xs(l)
+
+    def one(babies, pt):
+        return eng.giants(babies, pt, l, gp, gkb, gka, i32=i32, wide=wide)
+
+    def kern(c, pt):
+        if mode == "single":
+            return one(eng.babies(c, l, bp, bkb, bka), pt)
+        if mode == "shared":
+            babies = eng.babies(c, l, bp, bkb, bka)
+            return torch.stack([one(babies, q) for q in pt])
+        return torch.stack([one(eng.babies(cq, l, bp, bkb, bka), q)
+                            for cq, q in zip(c, pt)])
+    return kern
 
 
 def rns_expand(ctx: CkksContext, coeffs: torch.Tensor, level: int
@@ -220,6 +314,20 @@ def rns_expand(ctx: CkksContext, coeffs: torch.Tensor, level: int
     p, _ = ctx._p(level)
     r = coeffs.to(torch.int64)[..., None, :] % p      # canonical in [0, p)
     return ctx.ntt.ntt_to_mont(r, rows)
+
+
+def rns_expand_wide(ctx: CkksContext, planes: torch.Tensor, level: int
+                    ) -> torch.Tensor:
+    """Two-plane int64-split coefficient encodings [..., 2, N] (value =
+    hi*2^31 + lo, |value| < 2^62) -> NTT/Mont residues [..., l, N]: the
+    wide staging word of composite-scale (width-2) diagonals.  The value is
+    formed exactly in int64 and reduced once, which gives the reference's
+    canonical words."""
+    rows = tuple(range(level))
+    p, _ = ctx._p(level)
+    v = (planes[..., 1, :].to(torch.int64) * (1 << 31)
+         + planes[..., 0, :].to(torch.int64))
+    return ctx.ntt.ntt_to_mont(v[..., None, :] % p, rows)
 
 
 def _load_coeffs(ctx: CkksContext, coeffs: np.ndarray, level: int

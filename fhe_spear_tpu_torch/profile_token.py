@@ -1,16 +1,26 @@
-"""Where one client-aided token's time goes on the card.
+"""Where one client-aided token's time goes on the card -- or one
+retrieval query's, or one fully-encrypted block's.
 
     python -m fhe_spear_tpu_torch.profile_token [--blocks 2] [--top 15]
         [--transport {classic,device}] [--ntt-backend {stockham,mxu}]
+        [--path {token,retrieval,fullenc}]
 
-Builds the chip_smoke configuration (D=2048, F=8192, N=8192, L=3, K=1,
-level 3) on the chosen transport -- classic: `FheRwkvClient` on the fused
-transport with i32 staging; device: the device-resident client
-`DeviceTokenRunner` -- and NTT backend, runs one warm-up token, then
-traces one steady token with torch.profiler and prints: the token's wall
-time, the device's busy time and idle share over that window, the count
-of device events (kernels and copies) and their summed time, and the
-device time by kernel name (largest first).  Needs a card.
+--path token (default): the chip_smoke configuration (D=2048, F=8192,
+N=8192, L=3, K=1, level 3) on the chosen transport -- classic:
+`FheRwkvClient` on the fused transport with i32 staging; device: the
+device-resident client `DeviceTokenRunner` -- and NTT backend; one warm-up
+token, then one steady token is traced.  (An encrypted-RAG token is the
+classic token at --blocks 1.)
+--path retrieval: column-packed CT-CT scoring of one query against 50k
+seeded unit vectors (dim 64, Lorentz, N=8192), after one warm-up query.
+--path fullenc: one fully-encrypted FFN block (D=2048, F=8192, N=8192,
+L=11, K=8, dnum=8, i32 staging, consumed at level 11), after one warm-up
+block.
+
+Each traces its window with torch.profiler and prints: the window's wall
+time, the device's busy time and idle share over it, the count of device
+events (kernels and copies) and their summed time, and the device time by
+kernel name (largest first).  Needs a card.
 """
 
 from __future__ import annotations
@@ -19,26 +29,13 @@ import argparse
 import time
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(prog="fhe_spear_tpu_torch.profile_token")
-    ap.add_argument("--blocks", type=int, default=2)
-    ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--transport", choices=("classic", "device"),
-                    default="classic")
-    ap.add_argument("--ntt-backend", choices=("stockham", "mxu"),
-                    default="stockham")
-    args = ap.parse_args(argv)
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def _token_window(args):
+    """(warm-up, traced) callables of one client-aided token."""
     from .ckks import CkksContext, CkksParams
     from .models.client_aided import FheRwkvClient, FheRwkvServer
     from .models.device_client import DeviceTokenRunner
     from .models.rwkv7 import generate_token_plaintext, make_random_model
 
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_token: needs a CUDA card")
     model = make_random_model(d=2048, f=8192, n_blocks=args.blocks,
                               head_size=64, vocab=1000, seed=42)
     ctx = CkksContext(CkksParams(n=8192, num_limbs=3, num_special=1,
@@ -51,15 +48,84 @@ def main(argv=None):
     else:
         server = FheRwkvServer(ctx, model, level=3, stage_mode="i32")
         token = FheRwkvClient(ctx, model, server).generate_token
-    state = model.zero_state()
-    _, state = generate_token_plaintext(model, 5, state)
-    _, state, _ = token(11, state)                          # warm-up
+    state = {"s": generate_token_plaintext(model, 5, model.zero_state())[1]}
+
+    def step(tok):
+        _, state["s"], timings = token(tok, state["s"])
+        return timings
+    return (lambda: step(11)), (lambda: step(2))
+
+
+def _retrieval_window(args):
+    import numpy as np
+
+    from .ckks import CkksContext, CkksParams
+    from .ops.retrieval import ColumnPackedRetrieval
+
+    ctx = CkksContext(CkksParams.retrieval(n=8192), seed=0)
+    eng = ColumnPackedRetrieval(ctx, dim=64)
+    rng = np.random.RandomState(0)
+    docs = rng.rand(50000, 64) * 2 - 1
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    corpus = eng.encrypt_corpus(docs)
+    qct = eng.encrypt_query(docs[0])
+
+    def query():
+        eng.decode_scores(eng.scores(corpus, qct), len(docs))
+        return []
+    return query, query
+
+
+def _fullenc_window(args):
+    import numpy as np
+
+    from .ckks import CkksContext, CkksParams
+    from .models.fully_encrypted import FullyEncryptedFfn, calibrate_magnitude
+
+    d, f = 2048, 8192
+    rng = np.random.default_rng(42)
+    wk, wv = calibrate_magnitude(
+        [rng.standard_normal((d, f)) / np.sqrt(d)],
+        [rng.standard_normal((f, d)) / np.sqrt(f)],
+        np.random.default_rng(4242).uniform(-1, 1, d))
+    ctx = CkksContext(CkksParams(n=8192, num_limbs=11, num_special=8,
+                                 dnum=8), seed=0)
+    eng = FullyEncryptedFfn(ctx, d, f, stage_mode="i32")
+    staged = eng.load_block(eng.encode_block(wk[0], wv[0], level=11), 11)
+    ct = ctx.encrypt_replicated(np.random.default_rng(4242).uniform(-1, 1, d))
+
+    def block():
+        eng(ct, staged)
+        return []
+    return block, block
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="fhe_spear_tpu_torch.profile_token")
+    ap.add_argument("--blocks", type=int, default=2)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--transport", choices=("classic", "device"),
+                    default="classic")
+    ap.add_argument("--ntt-backend", choices=("stockham", "mxu"),
+                    default="stockham")
+    ap.add_argument("--path", choices=("token", "retrieval", "fullenc"),
+                    default="token")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_token: needs a CUDA card")
+    warm, traced = {"token": _token_window, "retrieval": _retrieval_window,
+                    "fullenc": _fullenc_window}[args.path](args)
+    warm()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, state, timings = token(2, state)
+        timings = traced()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -82,11 +148,11 @@ def main(argv=None):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     total_dev = sum(t for t, _ in by_name.values())
-    print(f"card: {torch.cuda.get_device_name(0)}; transport "
-          f"{args.transport}, ntt backend {args.ntt_backend}")
-    print(f"token wall {wall * 1e3:.1f} ms over {args.blocks} blocks; device "
-          f"busy {busy_us / 1e3:.1f} ms, idle share "
-          f"{1 - busy_us / 1e3 / (wall * 1e3):.3f}")
+    print(f"card: {torch.cuda.get_device_name(0)}; path {args.path}"
+          + (f", transport {args.transport}, ntt backend {args.ntt_backend}, "
+             f"{args.blocks} blocks" if args.path == "token" else ""))
+    print(f"window wall {wall * 1e3:.1f} ms; device busy {busy_us / 1e3:.1f} "
+          f"ms, idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}")
     print(f"device events: {len(events)} kernels and copies, "
           f"{total_dev / 1e3:.1f} ms summed over them")
     agg = {}

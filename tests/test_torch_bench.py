@@ -1,7 +1,9 @@
 """The port's bench entries at a tiny size on the CPU: `bench` in both
-transports and `bench_streams` on the device client.  Each prints one JSON
-line with the keys of the root entry's line of the same name (read from
-that file's source), plus the device name in `detail`."""
+transports, `bench_streams` on the device client, `bench_retrieval` and
+`bench_fully_enc`.  Each prints one JSON line with the keys of the root
+entry's line of the same name (read from that file's source), plus the
+device name in `detail` (and, for the last two, the peak device memory,
+null on the CPU; `bench_fully_enc` also names its allocator setting)."""
 
 import ast
 import importlib
@@ -10,15 +12,17 @@ from pathlib import Path
 
 import pytest
 
-from fhe_spear_tpu_torch import bench
+from fhe_spear_tpu_torch import bench, bench_fully_enc
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
 def _root_schema(name):
-    """Keys of the dict literal that the root `<name>.py` prints with
-    json.dumps, and of its `detail` dict."""
+    """Keys of the last dict literal that the root `<name>.py` prints with
+    json.dumps (its result line), and of its `detail` dict (None where
+    detail is not a dict literal)."""
     tree = ast.parse((ROOT / f"{name}.py").read_text())
+    found = None
     for node in ast.walk(tree):
         if (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
                 == "dumps" and node.args
@@ -26,8 +30,23 @@ def _root_schema(name):
             line = node.args[0]
             keys = [k.value for k in line.keys]
             detail = line.values[keys.index("detail")]
-            return set(keys), {k.value for k in detail.keys}
-    raise AssertionError(f"no json.dumps({{...}}) in the root {name}.py")
+            if found is None or node.lineno > found[0]:
+                found = (node.lineno, set(keys),
+                         {k.value for k in detail.keys}
+                         if isinstance(detail, ast.Dict) else None)
+    assert found is not None, f"no json.dumps({{...}}) in the root {name}.py"
+    return found[1:]
+
+
+def _root_row_keys(name):
+    """Keys of the dict literal the root `<name>.py` appends to `rows`."""
+    tree = ast.parse((ROOT / f"{name}.py").read_text())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+                == "append" and getattr(node.func.value, "id", None) == "rows"
+                and isinstance(node.args[0], ast.Dict)):
+            return {k.value for k in node.args[0].keys}
+    raise AssertionError(f"no rows.append({{...}}) in the root {name}.py")
 
 
 @pytest.mark.parametrize("name,mode", [("bench", "device"),
@@ -56,3 +75,69 @@ def test_bench_json_line(name, mode, monkeypatch, tmp_path, capsys):
             "device-client" if mode == "device" else "fused")
     else:
         assert line["detail"]["all_streams_match_plaintext"] is True
+
+
+def test_bench_retrieval_json_line(monkeypatch, capsys):
+    for k, v in {"BENCH_N": "256", "BENCH_DIM": "15",
+                 "BENCH_SIZES": "100,300"}.items():
+        monkeypatch.setenv(k, v)
+    importlib.import_module("fhe_spear_tpu_torch.bench_retrieval").main(
+        device="cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    keys, _ = _root_schema("bench_retrieval")
+    assert set(line) == keys
+    assert set(line["detail"]) == {"rows", "device", "peak_device_memory_gib"}
+    assert line["detail"]["device"] == "cpu"
+    rows = line["detail"]["rows"]
+    assert [r["docs"] for r in rows] == [100, 300]
+    for r in rows:
+        assert set(r) == _root_row_keys("bench_retrieval")
+        assert r["top1_exact"] == 1 and r["corr"] > 0.999
+
+
+def test_bench_fully_enc_json_line(monkeypatch, tmp_path, capsys):
+    for k, v in {"BENCH_D": "16", "BENCH_F": "64", "BENCH_N": "256",
+                 "BENCH_BLOCKS": "2", "BENCH_SPECIAL": "3", "BENCH_DNUM": "4",
+                 "BENCH_PASSES": "2",
+                 "PYTORCH_CUDA_ALLOC_CONF": ""}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(bench_fully_enc, "CACHE_ROOT", tmp_path)
+    bench_fully_enc.main(device="cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    keys, detail = _root_schema("bench_fully_enc")
+    assert set(line) == keys
+    assert set(line["detail"]) == detail | {"device", "allocator",
+                                            "peak_device_memory_gib"}
+    assert line["detail"]["allocator"] == "default"
+    assert line["detail"]["blocks"] == 2
+    assert line["detail"]["final_level"] == 2       # L = 3*2 + 2 = 8
+    assert line["detail"]["min_corr"] > 0.99999
+    assert line["value"] > 0
+    assert any(p.name.startswith("fe_preenc_16_64_2_256_q")
+               for p in tmp_path.iterdir())
+    monkeypatch.setenv("BENCH_BOOTSTRAP", "1")
+    with pytest.raises(NotImplementedError, match="bootstrap"):
+        bench_fully_enc.main(device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["bench_retrieval", "bench_fully_enc",
+                                   "retriever", "rag"])
+def test_new_entry_points_default_to_cuda(entry):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from fhe_spear_tpu_torch.apps.demo import FheSpearRetriever
+    from fhe_spear_tpu_torch.apps.rag import EncryptedRag
+
+    call = {"bench_retrieval": lambda: importlib.import_module(
+                "fhe_spear_tpu_torch.bench_retrieval").main(),
+            "bench_fully_enc": bench_fully_enc.main,
+            "retriever": FheSpearRetriever,
+            "rag": lambda: EncryptedRag(["a passage"])}[entry]
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()

@@ -81,3 +81,17 @@ def test_rns_expand_negative_coeffs(setup):
     want = np.asarray(ref_expand(ref, jax.numpy.asarray(c), 3))
     got = rns_expand(port, torch.as_tensor(c), 3)
     np.testing.assert_array_equal(want.astype(np.int64), got.numpy())
+
+
+def test_baby_chunks_same_words(setup, monkeypatch):
+    """Baby keyswitches split into pieces (the bounded transient of deep
+    chains) give the words of one batched keyswitch."""
+    from fhe_spear_tpu_torch.ops import bsgs
+
+    port, peng, pct = setup[1], setup[3], setup[7]
+    xs = peng._xs(3)
+    whole = peng.babies(pct.c, 3, *xs[:3])
+    digits = 3 * 4 * 256 * 8                 # one rotation's digits, bytes
+    monkeypatch.setattr(bsgs, "BABY_DIGIT_BYTES", 2 * digits)
+    np.testing.assert_array_equal(peng.babies(pct.c, 3, *xs[:3]).numpy(),
+                                  whole.numpy())

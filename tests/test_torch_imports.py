@@ -19,7 +19,9 @@ def test_port_imports_no_jax_no_reference():
                                               "fhe_spear_tpu_torch.")]
     for mod in ("core.ntt_cuda", "core.fourstep_cuda",
                 "parallel.ntt_fourstep", "models.device_client", "bench",
-                "bench_streams"):
+                "bench_streams", "ops.packing", "ops.retrieval", "apps.demo",
+                "apps.rag", "models.fully_encrypted", "bench_retrieval",
+                "bench_fully_enc"):
         assert "fhe_spear_tpu_torch." + mod in names, mod
     code = (
         "import importlib, json, sys\n"
