@@ -44,13 +44,32 @@ Phases (each failure raises, and the script exits non-zero):
      0.99999 and max_err < 1e-3 against the plaintext oracle; then one
      width-2 block at L=9 (corr > 0.9999999, max_err < 1e-6).  K1/K2
      launch counts must rise in each of phases 8-10;
- 11. hold every kernel bitwise against its plain version (plain and fused
+ 11. bootstrap: one refresh at N=16384 (`CkksParams.bootstrap`, L=46, K=8,
+     dnum=6, h=64; `Bootstrapper` width 2, radix 4, exp_degree 31, margin
+     3) of a seeded uniform(-0.8, 0.8) message at level 2, twice (the
+     first call encodes the stage diagonals): corr > 0.99999, max_err <
+     1e-2, and a key stack must hold the identity key (the last
+     SlotToCoeff group's giant step is 0 mod slots); then a 2-block chain
+     through `run_fully_encrypted` at D=2048, F=8192 on the same context,
+     `min_levels` set so that one refresh falls between the blocks: each
+     block corr > 0.99999 and max_err < 1e-2 against the plaintext
+     oracle, with exactly 1 bootstrap;
+ 12. access control: the `access-control` CLI's defaults (30 passages,
+     dim 32, N=2048, noise scale 100, seed 0) through
+     `AccessControlledCorpus`: the authorized top-1 is the plaintext
+     top-1, the unauthorized one is not, and the separation grows with
+     the noise scale; then `generation_demo` at D=2048, F=8192, 1 block,
+     N=8192, 2 tokens: the authorized user's tokens equal the plaintext
+     twin's, and the two users' outputs differ.  K1/K2 launch counts must
+     rise in each of phases 8-12;
+ 13. hold every kernel bitwise against its plain version (plain and fused
      entry points) at each shape the device-client paths launched it with
      in their last token, time it there (plain version at the two most
      frequent), and sum launches x (time - bound) over that shape mix;
-     hold K1/K2 the same way at the largest shapes phases 8-10 launched,
-     and time them there;
- 12. print the kernels line, then the device line last.
+     hold K1/K2 the same way at the largest shapes phases 8-12 launched,
+     and at the shapes of one refresh that carry the most work (and
+     ModRaise's), and time them there;
+ 14. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -683,6 +702,10 @@ FE_W2_L = 9
 FE_CORR, FE_ERR = 0.99999, 1e-3
 FE_W2_CORR, FE_W2_ERR = 0.9999999, 1e-6
 NTT_KERNELS = ("ntt_fwd", "ntt_inv")
+# the 24-block chain's refresh (bench_fully_enc BENCH_BOOTSTRAP=1 at N=16384)
+BOOT_N, BOOT_L, BOOT_K, BOOT_DNUM, BOOT_H, BOOT_RADIX = 16384, 46, 8, 6, 64, 4
+BOOT_CORR, BOOT_ERR = 0.99999, 1e-2
+AC_DOCS, AC_DIM, AC_N, AC_TOKENS = 30, 32, 2048, 2   # the CLI's defaults
 
 
 def _hist_since(before):
@@ -987,6 +1010,231 @@ def phase_fullenc(new_hists):
                     peak2}
 
 
+def phase_bootstrap(new_hists):
+    """One refresh at N=16384 with the chain's parameters, then a 2-block
+    chain with one refresh between the blocks, on the same context."""
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.ckks.bootstrap import Bootstrapper
+    from fhe_spear_tpu_torch.models.fully_encrypted import (
+        FullyEncryptedFfn, calibrate_magnitude, fe_level_schedule,
+        pre_encode_blocks, run_fully_encrypted)
+
+    log(f"bootstrap: N={BOOT_N}, L={BOOT_L}, K={BOOT_K}, dnum={BOOT_DNUM}, "
+        f"h={BOOT_H}; width 2, radix {BOOT_RADIX}, exp_degree 31, margin 3")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start = _shape_counts()
+    t0 = time.perf_counter()
+    ctx = CkksContext(CkksParams.bootstrap(n=BOOT_N, num_limbs=BOOT_L,
+                                           num_special=BOOT_K, hamming=BOOT_H,
+                                           dnum=BOOT_DNUM),
+                      seed=0, device=DEVICE)
+    bt = Bootstrapper(ctx, exp_degree=31, radix=BOOT_RADIX, evalmod_width=2,
+                      margin_bits=3)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    stage_groups = len(bt._c2s_f) + len(bt._s2c_f)
+    log(f"  context + bootstrapper: {t_setup:.2f}s ({len(ctx.galois_keys)} "
+        f"Galois keys, {stage_groups} stage groups, EvalMod r={bt.r}, "
+        f"K={bt.K}; {ctx.params.security_statement()})")
+    m = np.random.default_rng(1).uniform(-0.8, 0.8, ctx.slots)
+    ct = ctx.mod_switch_to(ctx.encrypt(m), 2)
+    refresh = {}
+    for call in ("first", "steady"):
+        before = _shape_counts()
+        t0 = time.perf_counter()
+        out = bt.bootstrap(ct)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = ctx.decrypt_vec(out)
+        err = float(np.abs(got - m).max())
+        corr = float(np.corrcoef(got, m)[0, 1])
+        refresh[call] = {"s": dt, "max_err": err, "corr": corr,
+                         "level": out.level}
+        log(f"  [refresh, {call} call] {dt:.3f}s -> level {out.level}, "
+            f"max_err {err:.3e}, corr {corr:.9f}")
+        if not (corr > BOOT_CORR and err < BOOT_ERR):
+            raise AssertionError(f"bootstrap: refresh off its message (corr "
+                                 f"> {BOOT_CORR}, max_err < {BOOT_ERR}): "
+                                 f"{refresh}")
+    hist = _hist_since(before)
+    new_hists["refresh"] = hist
+    log("  [refresh] one steady refresh's launches: " + " ".join(
+        f"{k}={sum(hist[k].values())}" for k in NTT_KERNELS))
+    _log_hist("refresh", hist)
+    ident = [i for i, g in enumerate(bt._s2c_f)
+             if any(ctx.galois_element(st) == 1
+                    for st in g.eng.baby_steps + g.eng.giant_steps)]
+    if not hasattr(ctx, "_identity_ksk") or not ident:
+        raise AssertionError("bootstrap: no key stack used the identity key")
+    log(f"  [refresh] identity key used by SlotToCoeff group(s) {ident} "
+        f"(giant steps {[bt._s2c_f[i].eng.giant_steps for i in ident]}, "
+        f"slots {ctx.slots}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # a 2-block chain, refreshed between the blocks
+    landing = refresh["steady"]["level"]
+    wk, wv, x0 = _fe_weights()
+    wk, wv = calibrate_magnitude(wk[:2], wv[:2], x0)
+    min_levels = BOOT_L - 3
+    levels = fe_level_schedule(BOOT_L, 2, min_levels=min_levels,
+                               boot_level=landing)
+    t0 = time.perf_counter()
+    eng = FullyEncryptedFfn(ctx, D, F, stage_mode="i32")
+    nd = ctx.drop_galois_keys(drop=eng.eng.warm_stacks()
+                              - bt.galois_elements())
+    hosts = pre_encode_blocks(eng, wk, wv, levels=levels)
+    torch.cuda.synchronize()
+    log(f"  [chain] D={D} F={F}, 2 blocks at levels {levels} "
+        f"(min_levels {min_levels}): keys + stack + pre-encode "
+        f"{time.perf_counter() - t0:.2f}s, {nd} raw keys dropped")
+    msgs = []
+    boot_s = []
+
+    def boot_fn(c):
+        t1 = time.perf_counter()
+        o = bt.bootstrap(c)
+        torch.cuda.synchronize()
+        boot_s.append(time.perf_counter() - t1)
+        return o
+
+    t0 = time.perf_counter()
+    stats = run_fully_encrypted(ctx, wk, wv, x0, bootstrap_fn=boot_fn,
+                                min_levels=min_levels, pre_encoded=hosts,
+                                eng=eng, calibrated=True, verbose=False,
+                                log_fn=msgs.append)
+    t_chain = time.perf_counter() - t0
+    for msg in msgs:
+        log(f"  [chain] {msg.strip()}")
+    if len(stats) != 2 or stats[-1]["bootstraps"] != 1:
+        raise AssertionError(f"bootstrap chain: {stats}")
+    for st in stats:
+        if not (st["corr"] > BOOT_CORR and st["max_err"] < BOOT_ERR):
+            raise AssertionError(f"bootstrap chain: block off the plaintext "
+                                 f"oracle: {stats}")
+    if any("re-encode" in msg for msg in msgs):
+        raise AssertionError("bootstrap chain: the refresh landed off the "
+                             "planned level")
+    torch.cuda.synchronize()
+    counts = _counts()
+    new_hists["bootstrap"] = _hist_since(start)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  [bootstrap] chain {t_chain:.2f}s (refresh {boot_s[0]:.3f}s), "
+        f"peak device memory {peak:.2f} GiB, launches {counts}")
+    _must_launch_ntt("bootstrap", counts)
+    del eng, hosts, bt, ctx, out, ct
+    torch.cuda.empty_cache()
+    return counts, {"refresh": refresh, "chain": stats, "chain_s": t_chain,
+                    "chain_refresh_s": boot_s, "setup_s": t_setup,
+                    "peak_gib": peak}
+
+
+def phase_access_control(new_hists):
+    """The access-control CLI's defaults through AccessControlledCorpus,
+    then per-user generation on the retrieved passage at full width."""
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.apps.access_control import (
+        AccessControlledCorpus, classify_passage, generation_demo,
+        security_sweep)
+    from fhe_spear_tpu_torch.apps.demo import hashed_embed, svd_compress
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.models.client_aided import FheRwkvClient, \
+        FheRwkvServer
+    from fhe_spear_tpu_torch.models.rwkv7 import make_random_model
+    from fhe_spear_tpu_torch.ops.packing import euclidean_to_lorentz, \
+        lorentz_inner
+
+    log(f"access control: the CLI's defaults ({AC_DOCS} passages, dim "
+        f"{AC_DIM}, N={AC_N}, noise scale 100, seed 0), then generation at "
+        f"D={D} F={F} N={N}, 1 block, {AC_TOKENS} tokens")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start = _shape_counts()
+    passages = [f"Revenue was ${i}.5 million in 2020 for org {i}"
+                if i % 2 else f"plain passage {i}" for i in range(AC_DOCS)]
+    classes = [classify_passage(p) for p in passages]
+    z, _ = svd_compress(hashed_embed(passages), AC_DIM)
+    t0 = time.perf_counter()
+    ctx = CkksContext(CkksParams(n=AC_N, num_limbs=3, num_special=1), seed=0,
+                      device=DEVICE)
+    corpus = AccessControlledCorpus(ctx, dim=z.shape[1], noise_scale=100.0,
+                                    seed=0)
+    corpus.build(z, classes)
+    all_classes = set(corpus.classes)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    plain = lorentz_inner(euclidean_to_lorentz(z[0]), euclidean_to_lorentz(z))
+    want = int(np.argmax(plain))
+    out = {}
+    for user, auth in (("authorized", all_classes), ("unauthorized", set())):
+        t0 = time.perf_counter()
+        scores = corpus.retrieve(z[0], corpus.apply_corrections(
+            corpus.corrections_for(auth)))
+        out[user] = {"top1": int(np.argmax(scores)),
+                     "s": time.perf_counter() - t0,
+                     "corr": float(np.corrcoef(scores, plain)[0, 1])}
+    sweep = security_sweep(corpus, z, classes)
+    seps = [r["separation"] for r in sweep]
+    log(f"  [access control] classes {sorted(all_classes)}; corpus build "
+        f"{t_build:.2f}s; plaintext top-1 #{want}; authorized top-1 "
+        f"#{out['authorized']['top1']} (score corr "
+        f"{out['authorized']['corr']:.6f}, {out['authorized']['s']:.3f}s); "
+        f"unauthorized top-1 #{out['unauthorized']['top1']} (score corr "
+        f"{out['unauthorized']['corr']:.4f}); separation by noise scale "
+        + ", ".join(f"{r['scale']}: {r['separation']:.1f}x" for r in sweep))
+    if out["authorized"]["top1"] != want or out["unauthorized"]["top1"] == want:
+        raise AssertionError(f"access control: top-1s {out} vs plaintext "
+                             f"#{want}")
+    if any(b <= a for a, b in zip(seps, seps[1:])):
+        raise AssertionError(f"access control: separation does not grow "
+                             f"with the noise scale: {sweep}")
+
+    t0 = time.perf_counter()
+    model = make_random_model(d=D, f=F, n_blocks=1, head_size=HEAD_SIZE,
+                              vocab=1000, seed=1)
+    gen_ctx = CkksContext(CkksParams(n=N, num_limbs=3, num_special=1),
+                          seed=2, device=DEVICE)
+    client = FheRwkvClient(gen_ctx, model, FheRwkvServer(gen_ctx, model,
+                                                         level=3))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = generation_demo(corpus, passages, z[0],
+                          "Based on the text above, the key figure is",
+                          {"alice": all_classes, "bob": set()}, client,
+                          num_tokens=AC_TOKENS)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    log(f"  [access control] generation: model + keys + server "
+        f"{t_init:.2f}s; two users {t_gen:.2f}s; alice retrieved "
+        f"#{res['alice']['retrieved']} tokens {res['alice']['tokens']} "
+        f"({res['alice']['token_matches']}/{AC_TOKENS} = plaintext); bob "
+        f"retrieved #{res['bob']['retrieved']} tokens {res['bob']['tokens']} "
+        f"({res['bob']['token_matches']}/{AC_TOKENS} = plaintext); outputs "
+        f"differ: {res['outputs_differ']}")
+    if res["alice"]["token_matches"] != AC_TOKENS or \
+            res["alice"]["retrieved"] != want or not res["outputs_differ"]:
+        raise AssertionError(f"access control: generation {res}")
+    torch.cuda.synchronize()
+    counts = _counts()
+    new_hists["access_control"] = _hist_since(start)
+    log(f"  [access control] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{counts}")
+    _must_launch_ntt("access control", counts)
+    del client, gen_ctx, corpus, ctx
+    torch.cuda.empty_cache()
+    return counts, {"retrieval": out, "sweep": sweep, "generation_s": t_gen,
+                    "alice": res["alice"]["tokens"], "bob": res["bob"]["tokens"]}
+
+
 def phase_new_shapes(new_hists, timing):
     """Hold K1/K2 bitwise (plain and fused entry points) at the largest
     shape (most polynomials, then most launches) each new path launched,
@@ -1001,16 +1249,27 @@ def phase_new_shapes(new_hists, timing):
     picks = []
     for tag, hist in new_hists.items():
         for name in NTT_KERNELS:
-            (B, R, n), cnt = max(hist[name].items(),
-                                 key=lambda kv: (kv[0][0] * kv[0][1], kv[1]))
-            picks.append((tag, name, B, R, n, cnt))
+            if tag == "refresh":
+                # the three shapes carrying the most of one refresh's work,
+                # and ModRaise's (K2 [2, 1, N], K1 [2, L, N])
+                top = sorted(hist[name].items(), key=lambda kv: -kv[0][0]
+                             * kv[0][1] * kv[0][2] * kv[1])[:3]
+                raise_shape = (2, 1 if name == "ntt_inv" else BOOT_L, BOOT_N)
+                if raise_shape in hist[name] and all(
+                        sh != raise_shape for sh, _ in top):
+                    top.append((raise_shape, hist[name][raise_shape]))
+            else:
+                top = [max(hist[name].items(),
+                           key=lambda kv: (kv[0][0] * kv[0][1], kv[1]))]
+            picks += [(tag, name, B, R, n, cnt) for (B, R, n), cnt in top]
     rows_by_n = {}
     for _, _, _, R, n, _ in picks:
         rows_by_n[n] = max(rows_by_n.get(n, 0), R)
     ctxs = {n: NttContext.build(n, find_ntt_primes(n, R), device="cuda")
             for n, R in rows_by_n.items()}
-    log("new shapes: K1/K2 at the largest shape each new path launched, "
-        "held bitwise first")
+    log("new shapes: K1/K2 at the largest shape each new path launched "
+        "(and at one refresh's three heaviest and ModRaise's), held bitwise "
+        "first")
     for tag, name, B, R, n, cnt in picks:
         t = _time_kernel(name, ctxs[n], None, B, tuple(range(R)), gen,
                          plain_runs=5)
@@ -1039,7 +1298,9 @@ def main(argv=None):
     split["generation paths"] = time.perf_counter() - t0
     results = {}
     for tag, phase in (("retrieval", phase_retrieval), ("rag", phase_rag),
-                       ("fullenc", phase_fullenc)):
+                       ("fullenc", phase_fullenc),
+                       ("bootstrap", phase_bootstrap),
+                       ("access_control", phase_access_control)):
         t0 = time.perf_counter()
         counts[tag], results[tag] = phase(new_hists)
         split[tag] = time.perf_counter() - t0

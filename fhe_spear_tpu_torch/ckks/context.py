@@ -38,8 +38,8 @@ bit.  Sums of canonical residues are taken exactly in int64 and reduced
 once (`% p`), which gives the same canonical word as the reference's
 chains of modular adds.
 
-Left out until a later slice: `identity_ksk`, `shard_eval_keys`,
-`decrypt_slot0`.
+Left out until a later slice: `shard_eval_keys` (the multi-device
+modules).
 """
 
 from __future__ import annotations
@@ -379,6 +379,16 @@ class CkksContext:
             n_drop += 1
         return n_drop
 
+    def identity_ksk(self) -> KeySwitchKey:
+        """Keyswitch key for s -> s (the identity rotation), made once, when
+        a stacked-rotation kernel first meets a step whose Galois element is
+        1 (rotation = 0 mod slots), so that every lane of the stack runs the
+        same keyswitch.  Its draws come from the context's generator at that
+        moment, as the reference's do."""
+        if not hasattr(self, "_identity_ksk"):
+            self._identity_ksk = self._make_ksk(self.s_eval)
+        return self._identity_ksk
+
     def _build_ksk(self, a: torch.Tensor, e: torch.Tensor,
                    sprime_eval: torch.Tensor) -> KeySwitchKey:
         """Key for s' -> s from uniform a and noise e [..., dnum, L+K, N]
@@ -552,6 +562,9 @@ class CkksContext:
     def decrypt_vec(self, ct: Ciphertext, length: int | None = None
                     ) -> np.ndarray:
         return self.decrypt_vec_complex(ct, length).real
+
+    def decrypt_slot0(self, ct: Ciphertext) -> float:
+        return float(self.decrypt_vec_complex(ct, 1)[0].real)
 
     # ------------------------------------------------------------------
     # arithmetic

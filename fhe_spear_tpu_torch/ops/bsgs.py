@@ -29,6 +29,12 @@ not carried over.
 
 Complex packing comes for free: a complex weight matrix W1 + i*W2 encodes
 into complex diagonals and one call evaluates both matrices.
+
+`DiagonalMatvec` runs the same kernel over a sparse offset set (the
+collapsed-FFT stages of bootstrapping).  Where one of its steps is a
+multiple of the slot count (Galois element 1: the last SlotToCoeff group
+at N=16384 with radix 4), the stack holds the identity permutation and
+`ctx.identity_ksk()`, so every lane runs the same keyswitch.
 """
 
 from __future__ import annotations
@@ -45,8 +51,9 @@ from ..ckks.context import CkksContext
 from ..core.modops import add_mod, mont_mul
 from ..native import encode_i32
 
-__all__ = ["bsgs_dims", "bsgs_kernel", "BsgsMatvec", "EncodedDiagonals",
-           "extract_diagonals", "rns_expand", "rns_expand_wide"]
+__all__ = ["bsgs_dims", "bsgs_kernel", "BsgsMatvec", "DiagonalMatvec",
+           "EncodedDiagonals", "extract_diagonals", "rns_expand",
+           "rns_expand_wide"]
 
 # rotated baby digits [S, d_l, T, N] int64 per batched keyswitch: the
 # keyswitch's transients are a few times this (1 GiB: one batch for every
@@ -207,7 +214,10 @@ class BsgsMatvec:
                     empty = torch.empty((0,), dtype=torch.long,
                                         device=ctx.device)
                     return (empty, empty, empty)
-                keys = [ctx.galois_keys[g] for g in gs]
+                # a step = 0 mod slots (Galois element 1) has no rotation
+                # key: its lane switches with the identity key
+                keys = [ctx.identity_ksk() if g == 1 else ctx.galois_keys[g]
+                        for g in gs]
                 return (torch.stack([ctx.perm(g) for g in gs]),
                         torch.stack([k.b for k in keys]),
                         torch.stack([k.a for k in keys]))
@@ -279,6 +289,65 @@ class BsgsMatvec:
             return self.giants(self.babies(c, l, bp, bkb, bka), pt, l,
                                gp, gkb, gka, i32=i32, wide=wide)
         return kernel
+
+
+class DiagonalMatvec(BsgsMatvec):
+    """Generalized BSGS over an arbitrary rotation-diagonal support.
+
+    Evaluates y = sum_{o in offsets} diag_o * rot_o(x) for a sparse offset
+    set (the collapsed-FFT bootstrap stages of ckks/dft.py, whose offsets
+    are the lattice {j*h : |j| < 2^radix}).  Offsets are factored as
+    o = (g*G + b) * u on the lattice of their gcd u; baby rotations are
+    u*[1..G), giant rotations g*G*u (g may be negative; group row 0 is
+    g = 0).  Same kernel, host staging and 1-level cost as the
+    square-matrix engine.
+    """
+
+    def __init__(self, ctx: CkksContext, offsets):
+        self.ctx = ctx
+        s = ctx.slots
+        signed = sorted({((o % s) + s // 2) % s - s // 2 for o in offsets})
+        self.d = s
+        u = 0
+        for o in signed:
+            u = math.gcd(u, abs(o))
+        self.unit = u = max(u, 1)
+        js = [o // u for o in signed]
+        self.G = max(1, math.isqrt(len(js)))
+        if self.G * self.G < len(js):
+            self.G += 1
+        gset = {j // self.G for j in js} | {0}
+        self._g_list = [0] + sorted(g for g in gset if g != 0)
+        self._g_row = {g: i for i, g in enumerate(self._g_list)}
+        self.B = len(self._g_list)
+        self.baby_steps = tuple(u * b for b in range(1, self.G))
+        self.giant_steps = tuple(g * self.G * u for g in self._g_list[1:])
+        self.giant_chunk = max(1, int(os.environ.get("FHE_GIANT_CHUNK", "8")))
+        ctx.ensure_galois(self.baby_steps + self.giant_steps)
+        self._full = None
+
+    def slot_table(self, diags: dict) -> np.ndarray:
+        """{offset: diagonal[slots]} -> the [B, G, slots] complex layout
+        (group g's diagonals pre-rotated by +g*G*u for post-rotation)."""
+        s = self.ctx.slots
+        tbl = np.zeros((self.B, self.G, s), dtype=np.complex128)
+        for o, v in diags.items():
+            o_s = ((o % s) + s // 2) % s - s // 2
+            j = o_s // self.unit
+            assert j * self.unit == o_s, (o, self.unit)
+            b = j % self.G
+            g = (j - b) // self.G
+            tbl[self._g_row[g], b] = np.roll(v, g * self.G * self.unit)
+        return tbl
+
+    def encode_table(self, diags: dict, scale: float | None = None
+                     ) -> EncodedDiagonals:
+        """int32 coefficients [B, G, N] of the slot table (the native batch
+        encoder where it builds, the numpy encoder otherwise)."""
+        ctx = self.ctx
+        scale = ctx.scale if scale is None else scale
+        return EncodedDiagonals(encode_i32(ctx.encoder, self.slot_table(diags),
+                                           scale), scale, ctx.slots)
 
 
 def bsgs_kernel(eng: BsgsMatvec, l: int, mode: str, i32: bool = False,

@@ -1,9 +1,10 @@
 """Where one client-aided token's time goes on the card -- or one
-retrieval query's, or one fully-encrypted block's.
+retrieval query's, one fully-encrypted block's, or one bootstrap
+refresh's.
 
     python -m fhe_spear_tpu_torch.profile_token [--blocks 2] [--top 15]
         [--transport {classic,device}] [--ntt-backend {stockham,mxu}]
-        [--path {token,retrieval,fullenc}]
+        [--path {token,retrieval,fullenc,bootstrap}]
 
 --path token (default): the chip_smoke configuration (D=2048, F=8192,
 N=8192, L=3, K=1, level 3) on the chosen transport -- classic:
@@ -16,6 +17,9 @@ seeded unit vectors (dim 64, Lorentz, N=8192), after one warm-up query.
 --path fullenc: one fully-encrypted FFN block (D=2048, F=8192, N=8192,
 L=11, K=8, dnum=8, i32 staging, consumed at level 11), after one warm-up
 block.
+--path bootstrap: one refresh of the 24-block chain's bootstrap (N=16384,
+L=46, K=8, dnum=6, h=64; width 2, radix 4, exp_degree 31, margin 3) of a
+seeded message at level 2, after one warm-up refresh.
 
 Each traces its window with torch.profiler and prints: the window's wall
 time, the device's busy time and idle share over it, the count of device
@@ -100,6 +104,26 @@ def _fullenc_window(args):
     return block, block
 
 
+def _bootstrap_window(args):
+    import numpy as np
+
+    from .ckks import CkksContext, CkksParams
+    from .ckks.bootstrap import Bootstrapper
+
+    ctx = CkksContext(CkksParams.bootstrap(n=16384, num_limbs=46,
+                                           num_special=8, hamming=64, dnum=6),
+                      seed=0)
+    bt = Bootstrapper(ctx, exp_degree=31, radix=4, evalmod_width=2,
+                      margin_bits=3)
+    m = np.random.default_rng(1).uniform(-0.8, 0.8, ctx.slots)
+    ct = ctx.mod_switch_to(ctx.encrypt(m), 2)
+
+    def refresh():
+        bt.bootstrap(ct)
+        return []
+    return refresh, refresh
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="fhe_spear_tpu_torch.profile_token")
     ap.add_argument("--blocks", type=int, default=2)
@@ -108,7 +132,8 @@ def main(argv=None):
                     default="classic")
     ap.add_argument("--ntt-backend", choices=("stockham", "mxu"),
                     default="stockham")
-    ap.add_argument("--path", choices=("token", "retrieval", "fullenc"),
+    ap.add_argument("--path", choices=("token", "retrieval", "fullenc",
+                                       "bootstrap"),
                     default="token")
     args = ap.parse_args(argv)
 
@@ -118,7 +143,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_token: needs a CUDA card")
     warm, traced = {"token": _token_window, "retrieval": _retrieval_window,
-                    "fullenc": _fullenc_window}[args.path](args)
+                    "fullenc": _fullenc_window,
+                    "bootstrap": _bootstrap_window}[args.path](args)
     warm()
     torch.cuda.synchronize()
 

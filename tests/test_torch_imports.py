@@ -21,7 +21,9 @@ def test_port_imports_no_jax_no_reference():
                 "parallel.ntt_fourstep", "models.device_client", "bench",
                 "bench_streams", "ops.packing", "ops.retrieval", "apps.demo",
                 "apps.rag", "models.fully_encrypted", "bench_retrieval",
-                "bench_fully_enc"):
+                "bench_fully_enc", "ckks.dft", "ops.polyeval",
+                "ckks.bootstrap", "apps.access_control", "apps.noise_study",
+                "bench_bootstrap", "bench_rag"):
         assert "fhe_spear_tpu_torch." + mod in names, mod
     code = (
         "import importlib, json, sys\n"
