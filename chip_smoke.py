@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --only=naive,checkpoints  # build, kernel checks,
+        # the named phases (paths = 4-7) and phase 17; no device line
 
 Phases (each failure raises, and the script exits non-zero):
   1. device: fail without CUDA; print the card's name and power limit;
@@ -62,14 +64,36 @@ Phases (each failure raises, and the script exits non-zero):
      N=8192, 2 tokens: the authorized user's tokens equal the plaintext
      twin's, and the two users' outputs differ.  K1/K2 launch counts must
      rise in each of phases 8-12;
- 13. hold every kernel bitwise against its plain version (plain and fused
+ 13. fhesim: on `CkksParams.retrieval(8192)` seed 0, the noise constant
+     over dims 8-64 and the 4-band `validate` through the port's CT-CT
+     column engine (bands 2 and 3 must pass; band 1, against the shipped
+     constant for N=8192, is printed and recorded), then
+     `benchmark_speed.run` at N=8192 and 16384 over 50k seeded unit vectors
+     at dim 64 (simulator ms, real ms synchronised, speed-up);
+ 14. naive ablation: `naive_ablation` (the FFN block x + (x@Wk)^2 @ Wv) at
+     D=2048, F=8192 on CkksParams(16384, 3, 1) in column batches, each
+     projection's seconds and rotations beside BSGS's, corr > 0.99999
+     against the plaintext; then `naive_multilayer` (plain and residual)
+     and `naive_autoregressive` (2 tokens) at d=64, f=256, vocab 64, 2
+     blocks on CkksParams(8192, 8, 1), token-exact with logit corr > 0.999;
+ 15. checkpoints: an owner's `BsgsMatvec(owner, 2048)` keys saved and
+     loaded by a server whose engine built its key stacks before the load;
+     the server's matvec equals the owner's word for word (the key epoch
+     rebuilt the stacks), the owner decrypts it to w @ x within 1e-3 and
+     the server's own key does not; secret key, ciphertext and a 24-block
+     D=2048 generation state survive round trips;
+ 16. profiling: `utils.profiling.trace` around one D=2048 matvec writes a
+     torch.profiler trace holding K1 (`ntt_fwd_kernel`) events;
+ 17. hold every kernel bitwise against its plain version (plain and fused
      entry points) at each shape the device-client paths launched it with
      in their last token, time it there (plain version at the two most
      frequent), and sum launches x (time - bound) over that shape mix;
-     hold K1/K2 the same way at the largest shapes phases 8-12 launched,
-     and at the shapes of one refresh that carry the most work (and
-     ModRaise's), and time them there;
- 14. print the kernels line, then the device line last.
+     hold K1/K2 the same way at the largest shapes phases 8-12 and 14
+     launched, at the shapes of one refresh that carry the most work (and
+     ModRaise's), and at the naive block's most frequent shape, and time
+     them there;
+ 18. print the kernels line, then the device line last.
+ K1/K2 launch counts must rise in each of phases 8-16.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1235,6 +1259,339 @@ def phase_access_control(new_hists):
                     "alice": res["alice"]["tokens"], "bob": res["bob"]["tokens"]}
 
 
+FHESIM_N, FHESIM_DIMS, FHESIM_DOCS, FHESIM_DIM = N, (8, 16, 32, 64), 50000, 64
+FHESIM_RINGS = (8192, 16384)
+NAIVE_N, NAIVE_L, NAIVE_K = 16384, 3, 1
+NAIVE_CORR = 0.99999
+CHAIN_D, CHAIN_F, CHAIN_VOCAB, CHAIN_BLOCKS = 64, 256, 64, 2  # depth cut
+CHAIN_N, CHAIN_L, CHAIN_TOKENS, CHAIN_CORR = 8192, 8, 2, 0.999
+CKPT_BLOCKS, CKPT_HEAD = 24, 64      # the generation state's depth, head
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+
+
+def phase_fhesim(new_hists):
+    """fhesim on the retrieval ring: the noise constant over four dims,
+    the 4-band `validate` (bands 2-3 must pass; band 1's verdict is
+    recorded), and `benchmark_speed` at 50k docs on two rings."""
+    import torch
+
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.fhesim import calibrate
+    from fhe_spear_tpu_torch.fhesim.benchmark_speed import run as speed_run
+
+    log(f"fhesim: CkksParams.retrieval({FHESIM_N}) seed 0, the port's CT-CT "
+        f"column engine; benchmark_speed over {FHESIM_DOCS} seeded unit "
+        f"vectors at dim {FHESIM_DIM}, N={FHESIM_RINGS}")
+    torch.cuda.synchronize()
+    _reset_counts()
+    start = _shape_counts()
+    ctx = CkksContext(CkksParams.retrieval(FHESIM_N), seed=0, device=DEVICE)
+    t0 = time.perf_counter()
+    c, per_dim = calibrate.measure_noise_constant(ctx, dims=FHESIM_DIMS)
+    log(f"  [fhesim] noise constant c = {c:.4e} ({time.perf_counter() - t0:.2f}"
+        "s); sigma by dim: " + ", ".join(f"{d}: {s:.4e}"
+                                         for d, s in per_dim.items()))
+    t0 = time.perf_counter()
+    res = calibrate.validate(ctx, seed=0, verbose=False)
+    t_val = time.perf_counter() - t0
+    for name, r in res.items():
+        if isinstance(r, dict):
+            nums = ", ".join(f"{k} {v:.6g}" if isinstance(v, float)
+                             else f"{k} {v}" for k, v in r.items()
+                             if k != "pass")
+            log(f"  [fhesim] band {name}: {'PASS' if r['pass'] else 'FAIL'} "
+                f"({nums})")
+    log(f"  [fhesim] validate {t_val:.2f}s: {res['summary']}")
+    if not (res["formula"]["pass"] and res["topk_overlap"]["pass"]):
+        raise AssertionError(f"fhesim: band 2 or 3 failed: {res}")
+    rows = speed_run(ns=FHESIM_RINGS, n_docs=FHESIM_DOCS, dim=FHESIM_DIM,
+                     seed=0, verbose=False, device=DEVICE)
+    for r in rows:
+        log(f"  [fhesim speed] N={r['n']}, {FHESIM_DOCS} docs: simulator "
+            f"{r['sim_s'] * 1e3:.3f} ms, real {r['real_s'] * 1e3:.3f} ms "
+            f"(scores + decrypt + decode, synchronised), speed-up "
+            f"{r['speedup']:.1f}x")
+    torch.cuda.synchronize()
+    counts = _counts()
+    _log_hist("fhesim", _hist_since(start))
+    log(f"  [fhesim] launches {counts}")
+    _must_launch_ntt("fhesim", counts)
+    del ctx
+    torch.cuda.empty_cache()
+    return counts, {"noise_constant": c, "per_dim_sigma": per_dim,
+                    "validate": {k: v for k, v in res.items()
+                                 if isinstance(v, dict)},
+                    "band1_pass": res["noise_constant"]["pass"],
+                    "speed": rows}
+
+
+def _chain_weights():
+    """Seeded chain weights at magnitudes that keep every hidden value and
+    logit well inside q0's headroom at level 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    d, f = CHAIN_D, CHAIN_F
+    blocks = [(rng.normal(0, 1 / np.sqrt(d), (d, f)),
+               rng.normal(0, 1 / np.sqrt(f), (f, d)))
+              for _ in range(CHAIN_BLOCKS)]
+    w_head = rng.normal(0, 1 / np.sqrt(d), (d, CHAIN_VOCAB))
+    return (blocks, w_head, rng.normal(0, 0.5, d),
+            rng.normal(0, 0.5, (CHAIN_VOCAB, d)))
+
+
+def phase_naive(new_hists):
+    """The naive per-column ablation: the FFN block at D=2048, F=8192 on
+    CkksParams(16384, 3, 1) through `naive_ablation`, then the
+    scalar-ciphertext chains (`naive_multilayer` both ways,
+    `naive_autoregressive`) at a cut width."""
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.models import naive_inference as naive
+    from fhe_spear_tpu_torch.ops.bsgs import bsgs_dims
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start = _shape_counts()
+    log(f"naive: FFN block D={D} F={F} on CkksParams({NAIVE_N}, {NAIVE_L}, "
+        f"{NAIVE_K}) seed 0, bench_fully_enc's weight scale, the whole "
+        "block")
+    t0 = time.perf_counter()
+    r = naive.naive_ablation(d=D, f=F, n=NAIVE_N, num_limbs=NAIVE_L,
+                             num_special=NAIVE_K, seed=0, device=DEVICE)
+    t_block = time.perf_counter() - t0
+    block_hist = _hist_since(start)
+    G, B = bsgs_dims(D)
+    bsgs_rot = (G - 1) + (B - 1)
+    log(f"  [naive block] key projection {r['key_s']:.2f}s ({F} columns, "
+        f"{r['key_rotations']} rotations), value projection "
+        f"{r['value_s']:.2f}s ({D} columns, {r['value_rotations']} "
+        f"rotations), col_chunk {r['col_chunk']}; block {t_block:.2f}s "
+        f"incl. keygen; corr {r['corr']:.9f}, max_err {r['max_err']:.3e}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  [naive block] rotations for one {D}x{D} matrix: naive "
+        f"{naive.rotation_count_naive(D, D)} vs BSGS {bsgs_rot} "
+        f"(G={G}, B={B}); for the block's projections: naive "
+        f"{r['key_rotations'] + r['value_rotations']} vs BSGS at most "
+        f"{2 * (F // D) * bsgs_rot} ({F // D} {D}x{D} matrices each)")
+    _log_hist("naive block", block_hist)
+    if not r["corr"] > NAIVE_CORR:
+        raise AssertionError(f"naive block: corr {r['corr']} <= "
+                             f"{NAIVE_CORR} against x + (x@Wk)^2 @ Wv")
+
+    blocks, w_head, x, emb = _chain_weights()
+    chain_start = _shape_counts()
+    t0 = time.perf_counter()
+    ctx = CkksContext(CkksParams(n=CHAIN_N, num_limbs=CHAIN_L,
+                                 num_special=1), seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"  [naive chains] d={CHAIN_D} f={CHAIN_F} vocab {CHAIN_VOCAB}, "
+        f"{CHAIN_BLOCKS} blocks (depth and width cut: full width is the "
+        f"paper's 10,863 s case), CkksParams({CHAIN_N}, {CHAIN_L}, 1); "
+        f"context {time.perf_counter() - t0:.2f}s")
+    chains = {}
+    for residual in (False, True):
+        h = x.copy()
+        for wk, wv in blocks:
+            pre = (h @ wk) ** 2 @ wv
+            h = pre + h if residual else pre
+        want = h @ w_head
+        t0 = time.perf_counter()
+        tok, logits, lvl = naive.naive_multilayer(ctx, x, blocks, w_head,
+                                                  residual=residual)
+        dt = time.perf_counter() - t0
+        corr = float(np.corrcoef(logits, want)[0, 1])
+        tag = "residual" if residual else "plain"
+        chains[tag] = {"s": dt, "token": tok, "corr": corr, "level": lvl}
+        log(f"  [naive multilayer, {tag}] {dt:.3f}s a token, token {tok} "
+            f"(plaintext {int(np.argmax(want))}), logit corr {corr:.9f}, "
+            f"level {lvl}")
+        if tok != int(np.argmax(want)) or not corr > CHAIN_CORR \
+                or lvl != CHAIN_L - 7:
+            raise AssertionError(f"naive multilayer ({tag}): {chains}")
+    t0 = time.perf_counter()
+    toks_f, toks_p = naive.naive_autoregressive(
+        ctx, emb, blocks, w_head, start_token=3, num_tokens=CHAIN_TOKENS)
+    dt = (time.perf_counter() - t0) / CHAIN_TOKENS
+    chains["autoregressive"] = {"s_per_token": dt, "fhe": toks_f,
+                                "plain": toks_p}
+    log(f"  [naive autoregressive] {CHAIN_TOKENS} tokens, {dt:.3f}s a "
+        f"token: fhe {toks_f}, plaintext {toks_p}")
+    if toks_f != toks_p:
+        raise AssertionError(f"naive autoregressive: {toks_f} != {toks_p}")
+    torch.cuda.synchronize()
+    counts = _counts()
+    new_hists["naive"] = block_hist
+    _log_hist("naive chains", _hist_since(chain_start))
+    log(f"  [naive] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{counts}")
+    _must_launch_ntt("naive", counts)
+    del ctx
+    torch.cuda.empty_cache()
+    return counts, {"block": {k: v for k, v in r.items()
+                              if k not in ("out", "want")},
+                    "block_s": t_block, "bsgs_rotations_per_matrix": bsgs_rot,
+                    "chains": chains}
+
+
+def phase_checkpoints(new_hists):
+    """Eval keys saved by an owner and loaded by a server whose engine was
+    built (and its key stacks with it) before the load; secret key,
+    ciphertext and generation state round trips."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.models.rwkv7 import RwkvState
+    from fhe_spear_tpu_torch.ops.bsgs import BsgsMatvec
+    from fhe_spear_tpu_torch.utils import serialization as ser
+
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    params = CkksParams(n=N, num_limbs=L, num_special=K)
+    log(f"checkpoints: BsgsMatvec keys at D={D}, N={N}, L={L}, K={K}")
+    torch.cuda.synchronize()
+    _reset_counts()
+    start = _shape_counts()
+    owner = CkksContext(params, seed=0, device=DEVICE)
+    eng_o = BsgsMatvec(owner, D)
+    server = CkksContext(params, seed=1, device=DEVICE)
+    eng_s = BsgsMatvec(server, D)
+    eng_s.warm_stacks()                 # stacks of the server's own keys
+    rng = np.random.default_rng(3)
+    w = rng.uniform(-1, 1, (D, D)) / np.sqrt(D)
+    x = rng.uniform(-1, 1, D)
+    ct = owner.encrypt_replicated(x)
+    pt = eng_o.load(eng_o.encode(w), ct.level)
+    want = eng_o(ct, pt)
+    kp = str(out_dir / "eval_keys.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ser.save_eval_keys(kp, owner)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ser.load_eval_keys(kp, server)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    size = os.path.getsize(kp)
+    got = eng_s(ct, pt)
+    same = torch.equal(got.c, want.c) and got.scale == want.scale
+    owner_err = float(np.abs(owner.decrypt_vec(got, D) - w @ x).max())
+    server_err = float(np.abs(server.decrypt_vec(got, D) - w @ x).max())
+    log(f"  [checkpoints] eval keys ({len(owner.galois_keys)} Galois + "
+        f"relin): {size} bytes, save {t_save:.3f}s, load {t_load:.3f}s; "
+        f"server engine built before the load (key epoch "
+        f"{server.key_epoch}): output equals the owner's word for word: "
+        f"{same}; owner decrypts to w @ x within {owner_err:.2e}, the "
+        f"server's own key misses by {server_err:.2e}")
+    if not same or not owner_err < 1e-3 or not server_err > 1.0:
+        raise AssertionError("checkpoints: the server's matvec on loaded keys")
+    sp, cp = str(out_dir / "sk.npz"), str(out_dir / "ct.npz")
+    ser.save_secret_key(sp, owner)
+    ctx2 = ser.load_secret_key(sp, params, device=DEVICE)
+    ser.save_ciphertext(cp, got, owner)
+    back = ser.load_ciphertext(cp, ctx2)
+    sk_ok = torch.equal(ctx2.s_eval, owner.s_eval)
+    ct_ok = torch.equal(back.c, got.c) and back.scale == got.scale
+    rt_err = float(np.abs(ctx2.decrypt_vec(back, D) - w @ x).max())
+    gen = np.random.default_rng(5)
+    nh = D // CKPT_HEAD
+    st = RwkvState(
+        x_prev_att=[gen.normal(0, 1e-3, D) for _ in range(CKPT_BLOCKS)],
+        x_prev_ffn=[gen.normal(0, 1e-3, D) for _ in range(CKPT_BLOCKS)],
+        wkv=[gen.normal(0, 1e-3, (nh, CKPT_HEAD, CKPT_HEAD))
+             for _ in range(CKPT_BLOCKS)])
+    gp = str(out_dir / "state.npz")
+    t0 = time.perf_counter()
+    ser.save_generation_state(gp, st, [5, 11, 2])
+    st2, toks = ser.load_generation_state(gp)
+    t_state = time.perf_counter() - t0
+    st_ok = toks == [5, 11, 2] and all(
+        np.array_equal(a, b) for a, b in zip(
+            st.x_prev_att + st.x_prev_ffn + st.wkv,
+            st2.x_prev_att + st2.x_prev_ffn + st2.wkv))
+    log(f"  [checkpoints] secret key round trip: {sk_ok}; ciphertext round "
+        f"trip: {ct_ok} (restored context decrypts within {rt_err:.2e}); "
+        f"generation state D={D}, {CKPT_BLOCKS} blocks, {nh} heads of "
+        f"{CKPT_HEAD} ({os.path.getsize(gp)} bytes, {t_state:.2f}s): exact "
+        f"{st_ok}")
+    if not (sk_ok and ct_ok and rt_err < 1e-3 and st_ok):
+        raise AssertionError("checkpoints: a round trip failed")
+    torch.cuda.synchronize()
+    counts = _counts()
+    _log_hist("checkpoints", _hist_since(start))
+    log(f"  [checkpoints] launches {counts}")
+    _must_launch_ntt("checkpoints", counts)
+    del owner, server, eng_o, eng_s, ctx2
+    torch.cuda.empty_cache()
+    return counts, {"bundle_bytes": size, "save_s": t_save,
+                    "load_s": t_load, "state_s": t_state}
+
+
+def phase_profiling(new_hists):
+    """`utils.profiling.trace` around one D=2048 matvec: the trace file
+    must hold K1 under its kernel's name."""
+    import glob
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+    from fhe_spear_tpu_torch.ops.bsgs import BsgsMatvec
+    from fhe_spear_tpu_torch.utils.profiling import Phases, trace
+
+    log(f"profiling: trace() around one D={D} matvec at N={N}")
+    torch.cuda.synchronize()
+    _reset_counts()
+    start = _shape_counts()
+    ctx = CkksContext(CkksParams(n=N, num_limbs=L, num_special=K), seed=0,
+                      device=DEVICE)
+    eng = BsgsMatvec(ctx, D)
+    rng = np.random.default_rng(4)
+    ct = ctx.encrypt_replicated(rng.uniform(-1, 1, D))
+    pt = eng.load(eng.encode(rng.uniform(-1, 1, (D, D)) / np.sqrt(D)),
+                  ct.level)
+    eng(ct, pt)                                      # warm-up
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    ph = Phases()
+    with trace(str(TRACE_DIR)):
+        with ph.span("matvec"):
+            eng(ct, pt)
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(str(TRACE_DIR), "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"profiling: {len(files)} trace files")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if "ntt_fwd_kernel" in e.get("name", "")]
+    k1_us = sum(e.get("dur", 0) for e in k1)
+    log(f"  [profiling] {os.path.getsize(files[0])} bytes, {len(kern)} "
+        f"device kernels, {len(k1)} K1 events ({k1_us:.1f} us; e.g. "
+        f"{k1[0]['name'] if k1 else None!r}); span {ph.report()}")
+    if not k1:
+        raise AssertionError("profiling: no K1 (ntt_fwd_kernel) event in "
+                             "the trace")
+    torch.cuda.synchronize()
+    counts = _counts()
+    _log_hist("profiling", _hist_since(start))
+    log(f"  [profiling] launches {counts}")
+    _must_launch_ntt("profiling", counts)
+    del ctx, eng
+    torch.cuda.empty_cache()
+    return counts, {"trace_bytes": os.path.getsize(files[0]),
+                    "device_kernels": len(kern), "k1_events": len(k1)}
+
+
 def phase_new_shapes(new_hists, timing):
     """Hold K1/K2 bitwise (plain and fused entry points) at the largest
     shape (most polynomials, then most launches) each new path launched,
@@ -1258,6 +1615,13 @@ def phase_new_shapes(new_hists, timing):
                 if raise_shape in hist[name] and all(
                         sh != raise_shape for sh, _ in top):
                     top.append((raise_shape, hist[name][raise_shape]))
+            elif tag == "naive":
+                # the largest column batch, and the most frequent shape
+                top = [max(hist[name].items(),
+                           key=lambda kv: (kv[0][0] * kv[0][1], kv[1]))]
+                freq = max(hist[name].items(), key=lambda kv: kv[1])
+                if freq[0] != top[0][0]:
+                    top.append(freq)
             else:
                 top = [max(hist[name].items(),
                            key=lambda kv: (kv[0][0] * kv[0][1], kv[1]))]
@@ -1268,8 +1632,8 @@ def phase_new_shapes(new_hists, timing):
     ctxs = {n: NttContext.build(n, find_ntt_primes(n, R), device="cuda")
             for n, R in rows_by_n.items()}
     log("new shapes: K1/K2 at the largest shape each new path launched "
-        "(and at one refresh's three heaviest and ModRaise's), held bitwise "
-        "first")
+        "(and at one refresh's three heaviest and ModRaise's, and the naive "
+        "block's most frequent), held bitwise first")
     for tag, name, B, R, n, cnt in picks:
         t = _time_kernel(name, ctxs[n], None, B, tuple(range(R)), gen,
                          plain_runs=5)
@@ -1292,22 +1656,42 @@ def main(argv=None):
     if "--kernels-only" in argv:
         log(json.dumps({"kernel_timing": timing}))
         return
+    phases = {"retrieval": phase_retrieval, "rag": phase_rag,
+              "fullenc": phase_fullenc, "bootstrap": phase_bootstrap,
+              "access_control": phase_access_control,
+              "fhesim": phase_fhesim, "naive": phase_naive,
+              "checkpoints": phase_checkpoints,
+              "profiling": phase_profiling}
+    only = [a.split("=", 1)[1].split(",") for a in argv
+            if a.startswith("--only=")]
+    run = only[0] if only else ["paths"] + list(phases)
+    for tag in run:
+        if tag != "paths" and tag not in phases:
+            raise SystemExit(f"chip_smoke: unknown phase {tag!r}")
     hists, new_hists, split = {}, {}, {}
-    t0 = time.perf_counter()
-    counts = phase_paths(hists)
-    split["generation paths"] = time.perf_counter() - t0
+    counts = {}
+    if "paths" in run:
+        t0 = time.perf_counter()
+        counts = phase_paths(hists)
+        split["generation paths"] = time.perf_counter() - t0
     results = {}
-    for tag, phase in (("retrieval", phase_retrieval), ("rag", phase_rag),
-                       ("fullenc", phase_fullenc),
-                       ("bootstrap", phase_bootstrap),
-                       ("access_control", phase_access_control)):
+    for tag, phase in phases.items():
+        if tag not in run:
+            continue
         t0 = time.perf_counter()
         counts[tag], results[tag] = phase(new_hists)
         split[tag] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase_shapes(kctx, kfsb, hists, timing)
+    if "paths" in run:
+        phase_shapes(kctx, kfsb, hists, timing)
     phase_new_shapes(new_hists, timing)
     split["shapes"] = time.perf_counter() - t0
+    if only:
+        log(json.dumps({"kernel_timing": timing, "results": results},
+                       default=str))
+        log("phase split: " + ", ".join(f"{k} {v:.1f}s"
+                                        for k, v in split.items()))
+        return
     log("phase split: " + ", ".join(f"{k} {v:.1f}s" for k, v in split.items()))
     # launches: K1/K2 from the first slice's path (classic fused
     # transport), the four-step pair from this slice's (device client on

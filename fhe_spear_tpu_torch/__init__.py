@@ -30,10 +30,21 @@ on the device-resident client (`models.device_client`); encrypted
 retrieval (`ops.retrieval`, `apps.demo`, `python -m fhe_spear_tpu_torch
 retrieval`) and encrypted RAG (`apps.rag`); the fully-encrypted FFN chain
 with the dnum-grouped hybrid keyswitch (`models.fully_encrypted`,
-`python -m fhe_spear_tpu_torch fullenc`); the benchmarks `python -m
-fhe_spear_tpu_torch.bench` / `.bench_streams` / `.bench_retrieval` /
-`.bench_fully_enc`; and both NTT backends: the bit-reversed Stockham transform (CUDA kernels in
-`csrc/ntt.cu`, wrapped by `core/ntt_cuda.py`) and the natural-order
-four-step transform of `ntt_backend="mxu"` (`parallel/ntt_fourstep.py`,
-CUDA kernels in `csrc/fourstep.cu`, wrapped by `core/fourstep_cuda.py`).
+`python -m fhe_spear_tpu_torch fullenc`); CKKS bootstrapping
+(`ckks.bootstrap`, `ckks.dft`, `ops.polyeval`) and the chain refreshed by
+it; FHE-native access control (`apps.access_control`, `apps.noise_study`,
+the `access-control` and `noise-study` subcommands); the fhesim accuracy
+predictor and its calibration on the port's column engine (`fhesim`,
+`python -m fhe_spear_tpu_torch fhesim`); dataset preparation
+(`apps.data_prep`); the naive per-column ablation
+(`models.naive_inference`); key, ciphertext and generation-state
+checkpoints in the reference's on-disk format (`utils.serialization`);
+spans and torch.profiler traces (`utils.profiling`); the benchmarks
+`python -m fhe_spear_tpu_torch.bench` / `.bench_streams` /
+`.bench_retrieval` / `.bench_fully_enc` / `.bench_bootstrap` /
+`.bench_rag`; and both NTT backends: the bit-reversed Stockham transform
+(CUDA kernels in `csrc/ntt.cu`, wrapped by `core/ntt_cuda.py`) and the
+natural-order four-step transform of `ntt_backend="mxu"`
+(`parallel/ntt_fourstep.py`, CUDA kernels in `csrc/fourstep.cu`, wrapped
+by `core/fourstep_cuda.py`).  Not yet ported: the multi-device modules.
 """

@@ -5,10 +5,12 @@
   python -m fhe_spear_tpu_torch fullenc         # fully-encrypted FFN chain
   python -m fhe_spear_tpu_torch access-control  # per-user noise corrections
   python -m fhe_spear_tpu_torch noise-study     # per-passage vs per-class
+  python -m fhe_spear_tpu_torch fhesim          # calibrate the predictor
 
 The flags are those of the same subcommands of `python -m fhe_spear_tpu`,
-plus --device (default cuda; cpu runs the plain torch path).  The
-`fhesim` subcommand arrives with its slice.
+plus --device (default cuda; cpu runs the plain torch path) and, for
+`fhesim`, --n (the calibration ring, default 2048).  `fhesim` writes
+`fhesim/fhesim_calibration.json` inside this package.
 """
 
 from __future__ import annotations
@@ -129,6 +131,12 @@ def cmd_access_control(args):
               f"{res['alice']['token_matches']}/{args.tokens}")
 
 
+def cmd_fhesim(args):
+    from .fhesim.calibrate import main as calibrate_main
+
+    calibrate_main(n=args.n, device=args.device)
+
+
 def cmd_noise_study(args):
     from .apps.noise_study import main as study_main
 
@@ -197,6 +205,12 @@ def main(argv=None):
     a.add_argument("--gen_n", type=int, default=2048)
     _device_flag(a)
     a.set_defaults(fn=cmd_access_control)
+
+    s = sub.add_parser("fhesim",
+                       help="calibrate + validate the fhesim predictor")
+    s.add_argument("--n", type=int, default=2048)
+    _device_flag(s)
+    s.set_defaults(fn=cmd_fhesim)
 
     ns = sub.add_parser("noise-study",
                         help="per-passage vs per-class leak study")

@@ -40,6 +40,10 @@ chains of modular adds.
 
 Left out until a later slice: `shard_eval_keys` (the multi-device
 modules).
+
+`key_epoch` counts replacements of the key material (`set_secret_key`,
+`utils.serialization.load_eval_keys`); `ops.bsgs.BsgsMatvec` compares it
+with the epoch of its key stacks and rebuilds them when they are older.
 """
 
 from __future__ import annotations
@@ -293,6 +297,30 @@ class CkksContext:
         self.relin_key: KeySwitchKey = self._make_ksk(
             mont_mul(self.s_eval, self.s_eval, self.ntt.p, self.ntt.pinv))
         self.galois_keys: dict[int, KeySwitchKey] = {}
+        # bumped whenever the key material is replaced (set_secret_key,
+        # utils.serialization.load_eval_keys): an engine holding stacked
+        # copies of the keys rebuilds them when its epoch is older
+        self.key_epoch = 0
+
+    def set_secret_key(self, sk_coeff: np.ndarray) -> None:
+        """Install a restored secret key on a (possibly warm) context: the
+        relinearization key is regenerated from it (uniform, then gauss,
+        from the context's generator, as the reference draws), the Galois
+        keys and the identity key are cleared (callers re-run
+        ensure_galois), and the key epoch is bumped so that engines
+        rebuild their key stacks.  Prefer a fresh
+        CkksContext(params, sk_coeff=...) where possible."""
+        sk = np.asarray(sk_coeff, dtype=np.int64)
+        if sk.shape != (self.n,):
+            raise ValueError(f"secret key of shape {sk.shape}, expected "
+                             f"({self.n},)")
+        self._sk_coeff = sk
+        self.s_eval = self._to_eval_mont(sk, tuple(range(self.L + self.K)))
+        self.galois_keys.clear()
+        self.__dict__.pop("_identity_ksk", None)
+        self.relin_key = self._make_ksk(
+            mont_mul(self.s_eval, self.s_eval, self.ntt.p, self.ntt.pinv))
+        self.key_epoch += 1
 
     # ------------------------------------------------------------------
     # small host/device helpers

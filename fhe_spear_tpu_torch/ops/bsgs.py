@@ -204,9 +204,14 @@ class BsgsMatvec:
     def _stacks(self):
         """The automorphism permutations [S, N] and the full rotation keys
         [S, dnum, L+K, N] of the baby and of the giant steps, stacked once:
-        a deep chain walks ~20 levels on one copy of the keys."""
+        a deep chain walks ~20 levels on one copy of the keys.  Stacks built
+        before the context's keys were replaced (an older `key_epoch`) are
+        rebuilt from the current keys, generating any that are missing."""
+        ctx = self.ctx
+        if self._full is not None and self._full_epoch != ctx.key_epoch:
+            self._full = None                   # free the stale stacks first
+            ctx.ensure_galois(self.baby_steps + self.giant_steps)
         if self._full is None:
-            ctx = self.ctx
 
             def stack_keys(steps):
                 gs = [ctx.galois_element(s) for s in steps]
@@ -224,6 +229,7 @@ class BsgsMatvec:
 
             self._full = (stack_keys(self.baby_steps)
                           + stack_keys(self.giant_steps))
+            self._full_epoch = ctx.key_epoch
         return self._full
 
     def babies(self, c: torch.Tensor, l: int, bp, bkb, bka) -> torch.Tensor:
@@ -358,20 +364,30 @@ def bsgs_kernel(eng: BsgsMatvec, l: int, mode: str, i32: bool = False,
                  rotations are computed once and shared);
       "batched": c [P, 2, l, N] against matching matrices pt [P, ...].
     Matrices run one after another, so only one matrix's expanded residues
-    are live at a time in i32 and wide staging (int32 coefficients)."""
-    bp, bkb, bka, gp, gkb, gka = eng._xs(l)
+    are live at a time in i32 and wide staging (int32 coefficients).  The
+    level's keys are selected once, and again after the context's keys
+    were replaced (`key_epoch`)."""
+    sel = [None, None]                      # [epoch, level-l keys]
 
-    def one(babies, pt):
+    def keys():
+        if sel[0] != eng.ctx.key_epoch:
+            sel[1] = eng._xs(l)
+            sel[0] = eng.ctx.key_epoch
+        return sel[1]
+
+    def one(babies, pt, gp, gkb, gka):
         return eng.giants(babies, pt, l, gp, gkb, gka, i32=i32, wide=wide)
 
     def kern(c, pt):
+        bp, bkb, bka, *giant = keys()
         if mode == "single":
-            return one(eng.babies(c, l, bp, bkb, bka), pt)
+            return one(eng.babies(c, l, bp, bkb, bka), pt, *giant)
         if mode == "shared":
             babies = eng.babies(c, l, bp, bkb, bka)
-            return torch.stack([one(babies, q) for q in pt])
-        return torch.stack([one(eng.babies(cq, l, bp, bkb, bka), q)
+            return torch.stack([one(babies, q, *giant) for q in pt])
+        return torch.stack([one(eng.babies(cq, l, bp, bkb, bka), q, *giant)
                             for cq, q in zip(c, pt)])
+    keys()
     return kern
 
 

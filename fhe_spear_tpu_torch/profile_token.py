@@ -1,10 +1,10 @@
 """Where one client-aided token's time goes on the card -- or one
-retrieval query's, one fully-encrypted block's, or one bootstrap
-refresh's.
+retrieval query's, one fully-encrypted block's, one bootstrap refresh's,
+or one column batch of the naive ablation's.
 
     python -m fhe_spear_tpu_torch.profile_token [--blocks 2] [--top 15]
         [--transport {classic,device}] [--ntt-backend {stockham,mxu}]
-        [--path {token,retrieval,fullenc,bootstrap}]
+        [--path {token,retrieval,fullenc,bootstrap,naive}]
 
 --path token (default): the chip_smoke configuration (D=2048, F=8192,
 N=8192, L=3, K=1, level 3) on the chosen transport -- classic:
@@ -20,6 +20,10 @@ block.
 --path bootstrap: one refresh of the 24-block chain's bootstrap (N=16384,
 L=46, K=8, dnum=6, h=64; width 2, radix 4, exp_degree 31, margin 3) of a
 seeded message at level 2, after one warm-up refresh.
+--path naive: one 1024-column batch of the naive FFN block's key
+projection (`naive_matvec`, D=2048 -> 1024 columns of bench_fully_enc's
+W_key, 11 rotation levels, N=16384, L=3, K=1: an eighth of the
+projection), after one warm-up batch.
 
 Each traces its window with torch.profiler and prints: the window's wall
 time, the device's busy time and idle share over it, the count of device
@@ -124,6 +128,25 @@ def _bootstrap_window(args):
     return refresh, refresh
 
 
+def _naive_window(args):
+    import numpy as np
+
+    from .ckks import CkksContext, CkksParams
+    from .models.naive_inference import naive_matvec
+
+    d, cols = 2048, 1024
+    w = np.random.default_rng(42).standard_normal((d, 8192))[:, :cols] \
+        / np.sqrt(d)
+    ctx = CkksContext(CkksParams(n=16384, num_limbs=3, num_special=1),
+                      seed=0)
+    ct = ctx.encrypt_replicated(np.random.default_rng(4242).uniform(-1, 1, d))
+
+    def batch():
+        naive_matvec(ctx, ct, w, d, cols, col_chunk=cols)
+        return []
+    return batch, batch
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="fhe_spear_tpu_torch.profile_token")
     ap.add_argument("--blocks", type=int, default=2)
@@ -133,7 +156,7 @@ def main(argv=None):
     ap.add_argument("--ntt-backend", choices=("stockham", "mxu"),
                     default="stockham")
     ap.add_argument("--path", choices=("token", "retrieval", "fullenc",
-                                       "bootstrap"),
+                                       "bootstrap", "naive"),
                     default="token")
     args = ap.parse_args(argv)
 
@@ -144,7 +167,8 @@ def main(argv=None):
         raise SystemExit("profile_token: needs a CUDA card")
     warm, traced = {"token": _token_window, "retrieval": _retrieval_window,
                     "fullenc": _fullenc_window,
-                    "bootstrap": _bootstrap_window}[args.path](args)
+                    "bootstrap": _bootstrap_window,
+                    "naive": _naive_window}[args.path](args)
     warm()
     torch.cuda.synchronize()
 

@@ -212,7 +212,9 @@ def test_bench_rag_json_line(monkeypatch, tmp_path, capsys):
 
 @pytest.mark.parametrize("entry", ["bench_retrieval", "bench_fully_enc",
                                    "retriever", "rag", "bench_bootstrap",
-                                   "bench_rag", "noise_study"])
+                                   "bench_rag", "noise_study",
+                                   "fhesim_calibrate", "fhesim_speed",
+                                   "naive_ablation"])
 def test_new_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -228,6 +230,14 @@ def test_new_entry_points_default_to_cuda(entry):
                 "fhe_spear_tpu_torch.bench_bootstrap").main(),
             "bench_rag": bench_rag.main,
             "noise_study": lambda: importlib.import_module(
-                "fhe_spear_tpu_torch.apps.noise_study").main()}[entry]
+                "fhe_spear_tpu_torch.apps.noise_study").main(),
+            "fhesim_calibrate": lambda: importlib.import_module(
+                "fhe_spear_tpu_torch.fhesim.calibrate").main(n=256),
+            "fhesim_speed": lambda: importlib.import_module(
+                "fhe_spear_tpu_torch.fhesim.benchmark_speed").run(
+                ns=(256,), n_docs=8, verbose=False),
+            "naive_ablation": lambda: importlib.import_module(
+                "fhe_spear_tpu_torch.models.naive_inference").naive_ablation(
+                d=16, f=64, n=256)}[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         call()

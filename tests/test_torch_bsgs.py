@@ -14,6 +14,18 @@ from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
 from fhe_spear_tpu_torch.ops.bsgs import (BsgsMatvec, bsgs_dims,
                                           extract_diagonals, rns_expand)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 D = 32
 
 
@@ -78,7 +90,8 @@ def test_rns_expand_negative_coeffs(setup):
     ref, port = setup[:2]
     c = np.array([[-(2 ** 31), -1, 0, 1, 2 ** 31 - 1] * 51 + [7]],
                  dtype=np.int32)
-    want = np.asarray(ref_expand(ref, jax.numpy.asarray(c), 3))
+    want = np.asarray(jax.jit(lambda v: ref_expand(ref, v, 3))(
+        jax.numpy.asarray(c)))
     got = rns_expand(port, torch.as_tensor(c), 3)
     np.testing.assert_array_equal(want.astype(np.int64), got.numpy())
 

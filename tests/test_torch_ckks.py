@@ -13,6 +13,18 @@ from fhe_spear_tpu.ckks import CkksParams as RefParams
 from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
 from fhe_spear_tpu_torch.convert import context_from_secret
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 256
 STEPS = tuple(range(1, 18))      # 17 rotation elements + conjugation = 18
 

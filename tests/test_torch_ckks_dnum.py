@@ -4,6 +4,7 @@ last one ragged): digit grouping, relin and Galois keys (the batched
 ensure_galois draw included), `_digit_tables`, `_fbc_digits`, and
 multiply + relin + rescale and a rotation."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,18 @@ import torch
 from fhe_spear_tpu.ckks import CkksContext as RefContext
 from fhe_spear_tpu.ckks import CkksParams as RefParams
 from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PARAMS = dict(n=256, num_limbs=11, num_special=3, dnum=4)
 STEPS = (1, 3, 7)
@@ -68,7 +81,8 @@ def test_digit_tables_and_fbc(pair):
     # level 11: the last group holds 2 limbs and a zero-padded member
     q = ref.q_np[:11].astype(np.int64)
     c = np.random.RandomState(11).randint(0, q[:, None], (2, 11, 256))
-    want = ref._fbc_digits(jnp.asarray(c.astype(np.uint32)), 11)
+    want = jax.jit(lambda v: ref._fbc_digits(v, 11))(
+        jnp.asarray(c.astype(np.uint32)))
     got = port._fbc_digits(torch.as_tensor(c), 11)
     np.testing.assert_array_equal(words(want), words(got))
 

@@ -4,6 +4,7 @@ test_torch_ckks.py because the reference's eager four-step transforms take
 most of a minute on the CPU."""
 
 import numpy as np
+import pytest
 import torch
 
 from fhe_spear_tpu.ckks import CkksContext as RefContext
@@ -11,6 +12,17 @@ from fhe_spear_tpu.ckks import CkksParams as RefParams
 from fhe_spear_tpu.ops.bsgs import BsgsMatvec as RefBsgs
 from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
 from fhe_spear_tpu_torch.ops.bsgs import BsgsMatvec
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def words(x):

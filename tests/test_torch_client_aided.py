@@ -15,6 +15,7 @@ at n=256.
 
 import numpy as np
 import pytest
+import torch
 
 from fhe_spear_tpu.ckks import CkksContext as RefContext
 from fhe_spear_tpu.ckks import CkksParams as RefParams
@@ -24,6 +25,17 @@ from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
 from fhe_spear_tpu_torch.convert import model_from_reference
 from fhe_spear_tpu_torch.models import client_aided as port_ca
 from fhe_spear_tpu_torch.models import rwkv7 as port_rwkv
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

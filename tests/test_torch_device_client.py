@@ -34,6 +34,17 @@ from fhe_spear_tpu_torch.models.rwkv7 import generate_token_plaintext, \
     make_random_model
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_ctx(backend="stockham", seed=61):
     return CkksContext(CkksParams(n=256, num_limbs=3, num_special=1,
                                   ntt_backend=backend), seed=seed,

@@ -5,9 +5,22 @@ inverse stage tables at 16, 64 and 256 slots, their collapses at radix 2,
 
 import numpy as np
 import pytest
+import torch
 
 from fhe_spear_tpu.ckks import dft as ref_dft
 from fhe_spear_tpu_torch.ckks import dft
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SLOTS = (16, 64, 256)
 

@@ -11,6 +11,7 @@ sums below 2^31 on inputs all p - 1, and the epilogue and the kernels'
 limb-plane layout are checked on their own.  The CUDA kernels against the
 plain versions run in the `cuda`-marked test (and in chip_smoke.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +27,18 @@ from fhe_spear_tpu_torch.core.primes import find_ntt_primes
 from fhe_spear_tpu_torch.parallel import ntt_fourstep as port_fs
 from fhe_spear_tpu_torch.parallel.ntt_fourstep import FourStepBackend, \
     FourStepNtt
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 L = 3
 
@@ -51,6 +64,13 @@ def _words(x):
     return np.asarray(x).astype(np.int64)
 
 
+def _ref(fn, x, rows):
+    """Words of the reference's fn(x, rows), traced under one jit (called
+    eagerly, its first call compiles every primitive apart: ~10 s on the
+    CPU for one transform)."""
+    return _words(jax.jit(lambda v: fn(v, rows))(_u32(x)))
+
+
 @pytest.mark.parametrize("n,n1", [(256, 16), (256, 8), (1024, None)])
 @pytest.mark.parametrize("rows", [(0, 1, 2), (0, 2)])
 def test_fourstep_bitwise_against_reference(n, n1, rows):
@@ -63,21 +83,20 @@ def test_fourstep_bitwise_against_reference(n, n1, rows):
     x = _residues(pctx.primes, rows, (2, n), seed=n + len(rows))  # [R, B, N]
 
     got = fs.ntt_mxu_b(torch.as_tensor(x), rows).numpy()
-    np.testing.assert_array_equal(got, _words(rfs.ntt_mxu_b(_u32(x), rows)))
+    np.testing.assert_array_equal(got, _ref(rfs.ntt_mxu_b, x, rows))
     back = fs.intt_mxu_b(torch.as_tensor(got), rows).numpy()
-    np.testing.assert_array_equal(back, _words(rfs.intt_mxu_b(_u32(got),
-                                                              rows)))
+    np.testing.assert_array_equal(back, _ref(rfs.intt_mxu_b, got, rows))
     np.testing.assert_array_equal(back, x)
 
     if len(rows) < L:
         return                  # the tree form is held on all rows below
     x0 = x[:, 0]                                                  # [R, N]
     tree = fs.ntt(torch.as_tensor(x0), rows).numpy()
-    np.testing.assert_array_equal(tree, _words(rfs.ntt(_u32(x0), rows)))
+    np.testing.assert_array_equal(tree, _ref(rfs.ntt, x0, rows))
     np.testing.assert_array_equal(tree, got[:, 0])
     stock = fs.ntt_stockham_order(torch.as_tensor(x0), rows).numpy()
     np.testing.assert_array_equal(
-        stock, _words(rfs.ntt_stockham_order(_u32(x0), rows)))
+        stock, _ref(rfs.ntt_stockham_order, x0, rows))
     # the order contract: four-step bin bitrev(b) is Stockham bin b
     np.testing.assert_array_equal(
         stock, pctx.ntt(torch.as_tensor(x0), rows).numpy())
@@ -112,9 +131,8 @@ def test_worst_case_shift_groups_stay_below_2_31(n, n1, monkeypatch):
     back = fs.intt_mxu_b(torch.as_tensor(x), rows).numpy()
     assert len(peak) == 4                  # two stages in each direction
     assert max(peak) < 2 ** 25 < 2 ** 31, peak
-    np.testing.assert_array_equal(got, _words(rfs.ntt_mxu_b(_u32(x), rows)))
-    np.testing.assert_array_equal(back, _words(rfs.intt_mxu_b(_u32(x),
-                                                              rows)))
+    np.testing.assert_array_equal(got, _ref(rfs.ntt_mxu_b, x, rows))
+    np.testing.assert_array_equal(back, _ref(rfs.intt_mxu_b, x, rows))
     # the analytic worst case at K = 128: every limb 255, 4 pairs a group
     a8 = torch.full((1, 4, 16, 128), 255, dtype=torch.uint8)
     T = groups(a8, torch.full((1, 128, 8), 2 ** 32 - 1, dtype=torch.int64))
@@ -191,7 +209,7 @@ def test_backend_round_trip_and_autoperm():
                         ).transpose(0, 1).contiguous()            # [4, R, N]
     y = backend.ntt(x, rows)                         # [..., R, N] layout
     np.testing.assert_array_equal(
-        y.numpy(), _words(rback.ntt(_u32(x.numpy()), rows)))
+        y.numpy(), _ref(rback.ntt, x.numpy(), rows))
     assert torch.equal(backend.intt(y, rows), x)
     for g in (5, 25, 2 * 256 - 1):
         np.testing.assert_array_equal(backend.autoperm(g), rback.autoperm(g))

@@ -16,6 +16,7 @@ keyswitch digits) at d=16, f=64, with one pair of contexts for the module:
 Most of the module's time is the reference's XLA compiles, ~20-25 s for
 each of its three blocks."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +30,18 @@ from fhe_spear_tpu.ops.bsgs import rns_expand_wide as ref_expand_wide
 from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
 from fhe_spear_tpu_torch.models import fully_encrypted as fe
 from fhe_spear_tpu_torch.ops.bsgs import BsgsMatvec, rns_expand_wide
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PARAMS = dict(n=256, num_limbs=11, num_special=3, dnum=4)
 D, F, NB = 16, 64, 3
@@ -98,7 +111,8 @@ def test_wide_staging_and_block(chain):
     renc, penc = rb.encode_wide(w, scale), pb.encode_wide(w, scale)
     np.testing.assert_array_equal(renc.coeffs, penc.coeffs)
     np.testing.assert_array_equal(
-        words(ref_expand_wide(ref, jnp.asarray(renc.coeffs), 11)),
+        words(jax.jit(lambda v: ref_expand_wide(ref, v, 11))(
+            jnp.asarray(renc.coeffs))),
         words(rns_expand_wide(port, torch.as_tensor(penc.coeffs), 11)))
 
     reng = ref_fe.FullyEncryptedFfn(ref, D, F, stage_mode="i32", width=2)

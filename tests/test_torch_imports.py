@@ -8,7 +8,22 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 import fhe_spear_tpu_torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -23,7 +38,10 @@ def test_port_imports_no_jax_no_reference():
                 "apps.rag", "models.fully_encrypted", "bench_retrieval",
                 "bench_fully_enc", "ckks.dft", "ops.polyeval",
                 "ckks.bootstrap", "apps.access_control", "apps.noise_study",
-                "bench_bootstrap", "bench_rag"):
+                "bench_bootstrap", "bench_rag", "fhesim", "fhesim.simulator",
+                "fhesim.eval", "fhesim.calibrate", "fhesim.benchmark_speed",
+                "apps.data_prep", "models.naive_inference", "utils",
+                "utils.serialization", "utils.profiling"):
         assert "fhe_spear_tpu_torch." + mod in names, mod
     code = (
         "import importlib, json, sys\n"

@@ -14,6 +14,18 @@ from fhe_spear_tpu.core.primes import find_ntt_primes as ref_primes
 from fhe_spear_tpu_torch.core import modops as port
 from fhe_spear_tpu_torch.core.primes import find_ntt_primes
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # q0 (just below 2^31), scale primes near 2^28, one special just below 2^31
 PRIMES = find_ntt_primes(1024, 3, reserve_special=1)
 

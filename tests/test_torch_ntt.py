@@ -28,6 +28,17 @@ from fhe_spear_tpu_torch.core.primes import find_ntt_primes
 from fhe_spear_tpu_torch.parallel.ntt_fourstep import FourStepBackend
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _residues(primes, shape, seed=0):
     """Canonical residues [B, R, N] (limb r mod primes[r])."""
     rng = np.random.default_rng(seed)
@@ -42,7 +53,7 @@ def test_ntt_bitwise_three_ways(n):
     rctx = ref_ntt.NttContext.build(n, ref_primes(n, l))
     x = _residues(pctx.primes, (b, l, n))
     got = pctx.ntt(torch.as_tensor(x)).numpy()
-    want = np.asarray(rctx.ntt(jnp.asarray(x.astype(np.uint32))))
+    want = np.asarray(jax.jit(rctx.ntt)(jnp.asarray(x.astype(np.uint32))))
     np.testing.assert_array_equal(got, want.astype(np.int64))
     # the Pallas kernel takes [R, B, N]
     pallas = np.asarray(ntt_pallas(rctx, jnp.asarray(
@@ -51,7 +62,8 @@ def test_ntt_bitwise_three_ways(n):
 
     back = pctx.intt(torch.as_tensor(got)).numpy()
     np.testing.assert_array_equal(back, x)
-    want_i = np.asarray(rctx.intt(jnp.asarray(got.astype(np.uint32))))
+    want_i = np.asarray(jax.jit(rctx.intt)(jnp.asarray(
+        got.astype(np.uint32))))
     np.testing.assert_array_equal(back, want_i.astype(np.int64))
     pallas_i = np.asarray(intt_pallas(rctx, jnp.asarray(
         got.transpose(1, 0, 2).astype(np.uint32)), interpret=True))
@@ -65,7 +77,8 @@ def test_ntt_row_subset():
     rctx = ref_ntt.NttContext.build(n, ref_primes(n, l))
     x = _residues(pctx.primes, (2, l, n))[:, list(rows)]
     got = pctx.ntt(torch.as_tensor(x), rows).numpy()
-    want = np.asarray(rctx.ntt(jnp.asarray(x.astype(np.uint32)), rows))
+    want = np.asarray(jax.jit(lambda v: rctx.ntt(v, rows))(
+        jnp.asarray(x.astype(np.uint32))))
     np.testing.assert_array_equal(got, want.astype(np.int64))
     pallas = np.asarray(ntt_pallas(rctx, jnp.asarray(
         x.transpose(1, 0, 2).astype(np.uint32)), rows=rows, interpret=True))
@@ -90,7 +103,8 @@ def test_tables_mont_and_automorphism():
     x = _residues(pctx.primes, (l, n))
     for fn in ("to_mont", "from_mont"):
         got = getattr(pctx, fn)(torch.as_tensor(x)).numpy()
-        want = np.asarray(getattr(rctx, fn)(jnp.asarray(x.astype(np.uint32))))
+        want = np.asarray(jax.jit(getattr(rctx, fn))(
+            jnp.asarray(x.astype(np.uint32))))
         np.testing.assert_array_equal(got, want.astype(np.int64))
     for g in (5, 25, 2 * n - 1):
         np.testing.assert_array_equal(port_ntt.automorphism_perm(n, g),

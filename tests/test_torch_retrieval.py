@@ -23,6 +23,18 @@ from fhe_spear_tpu_torch.ops import packing
 from fhe_spear_tpu_torch.ops.retrieval import ColumnPackedRetrieval, \
     RowPackedRetrieval
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small-ring torch ops gain nothing from intra-op threads, and under a
+    parallel test run the threads of several workers oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # dim 15 packs into 8 complex slots with and without the Lorentz lift, so
 # every column-packed case has the same shapes (the reference compiles
 # once per shape)
