@@ -3,7 +3,8 @@
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --only=naive,checkpoints  # build, kernel checks,
-        # the named phases (paths = 4-7) and phase 17; no device line
+        # the named phases (paths = 4-7) and phase 18; no device line
+    python3 chip_smoke.py --only=parallel  # build, kernel checks, phase 17
 
 Phases (each failure raises, and the script exits non-zero):
   1. device: fail without CUDA; print the card's name and power limit;
@@ -84,15 +85,40 @@ Phases (each failure raises, and the script exits non-zero):
      D=2048 generation state survive round trips;
  16. profiling: `utils.profiling.trace` around one D=2048 matvec writes a
      torch.profiler trace holding K1 (`ntt_fwd_kernel`) events;
- 17. hold every kernel bitwise against its plain version (plain and fused
+ 17. parallel: the multi-device modules at full width, in three spawns of
+     ranks on the card (`parallel.collectives.run_ranks`; gloo ranks all
+     on cuda:0 with collectives staged through the host, so times are the
+     cost of each rank, not scaling), launches counted inside the ranks
+     and reported by rank 0, every replicated result equal on every rank:
+     (a) 3 gloo ranks: the giant-sharded matvec (`ShardedBsgsMatvec`,
+     D=2048, B=45 groups, 15 a rank) on CkksParams(8192, 3, 1) seed 0 at
+     level 3, stockham (max_err < 2e-3 against W @ x; K1/K2 launch, the
+     four-step pair does not) and mxu (< 5e-3; the four-step pair
+     launches, K1/K2 do not); the sharded server's explicit-transport
+     token (`ShardedFheRwkvServer`, the paths' model, 2 blocks, 2 tokens,
+     each equal to its twin with corr >= 0.9999); the sharded
+     fully-encrypted chain (`ShardedFullyEncryptedFfn`, phase 10's chain:
+     every block corr > 0.99999, max_err < 1e-3);
+     (b) 1 NCCL rank: the giant matvec again, and psum_mod /
+     all_gather_rows / all_to_all of int64 on the device;
+     (c) 2 gloo ranks: one limb-sharded rotation (`LimbShardedRotator`) at
+     N=16384, L=46, K=8, one digit per limb, level 46 (words equal
+     `ctx.rotate` on the same rank); phase 10's chain with its keys
+     limb-sharded (`shard_eval_keys`; words equal the unsharded chain's);
+     `FourStepNtt.ntt_sharded` at N=8192 on 3 rows (words equal
+     `FourStepNtt.ntt`); the block pipeline (`BlockPipeline`, 2 blocks
+     over 2 ranks, 2 streams, 2 tokens, each stream equal to its twin with
+     corr >= 0.999);
+ 18. hold every kernel bitwise against its plain version (plain and fused
      entry points) at each shape the device-client paths launched it with
      in their last token, time it there (plain version at the two most
      frequent), and sum launches x (time - bound) over that shape mix;
      hold K1/K2 the same way at the largest shapes phases 8-12 and 14
      launched, at the shapes of one refresh that carry the most work (and
-     ModRaise's), and at the naive block's most frequent shape, and time
-     them there;
- 18. print the kernels line, then the device line last.
+     ModRaise's), at the naive block's most frequent shape, and at the
+     largest limb-row shapes of phase 17's limb rotation and key-sharded
+     chain, and time them there;
+ 19. print the kernels line, then the device line last.
  K1/K2 launch counts must rise in each of phases 8-16.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1592,6 +1618,251 @@ def phase_profiling(new_hists):
                     "device_kernels": len(kern), "k1_events": len(k1)}
 
 
+# the multi-device phases: ranks of one spawn share the card (gloo through
+# the host; NCCL refuses two ranks on one device), so their times are the
+# cost of each rank, not scaling
+PAR_TIMEOUT = {"giant": 480.0, "nccl": 180.0, "limb": 420.0}
+PAR_GIANT_ERR, PAR_GIANT_ERR_MXU = 2e-3, 5e-3   # tests/test_parallel.py
+PAR_LIMB_N, PAR_LIMB_L, PAR_LIMB_K = 16384, 46, 8
+
+
+def _par_spawn(tag, world, backend, jobs):
+    """One spawn of `world` ranks running `jobs` (parallel.dryrun.run_jobs)
+    on the card; every rank must have run there."""
+    import torch
+
+    from fhe_spear_tpu_torch.parallel.collectives import run_ranks
+    from fhe_spear_tpu_torch.parallel.dryrun import run_jobs
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_ranks(run_jobs, world, backend, DEVICE, PAR_TIMEOUT[tag], jobs)
+    log(f"  [{tag}] {world} rank(s) over {backend}: "
+        f"{time.perf_counter() - t0:.2f}s with start-up; ranks on "
+        + ", ".join(f"{r['device']} ({r.get('device_name')})" for r in res))
+    for rank, r in enumerate(res):
+        if r["backend"] != backend or not r["device"].startswith("cuda"):
+            raise AssertionError(f"{tag}: rank {rank} ran on {r['device']} "
+                                 f"over {r['backend']}")
+        log(f"  [{tag}] rank {rank} collectives: {r['comm']['calls']} calls, "
+            f"{r['comm']['bytes']} bytes in, {r['comm']['host_bytes']} bytes "
+            "staged through the host")
+    return res
+
+
+def _par_plain(x):
+    """A rank's result without its by-shape histograms (for the JSON)."""
+    if isinstance(x, dict):
+        return {k: _par_plain(v) for k, v in x.items()
+                if k not in ("ntt_by_shape", "words")}
+    if isinstance(x, list):
+        return [_par_plain(v) for v in x]
+    return x
+
+
+def _par_agree(tag, res, key, get=lambda r: r["digest"]):
+    vals = {get(r[key]) for r in res}
+    if len(vals) != 1:
+        raise AssertionError(f"{tag}: ranks disagree on the words: {vals}")
+
+
+def _par_span(tag, res, key, span=lambda r: r):
+    """Log each rank's seconds, peak memory and collective bytes of one
+    span; return rank 0's launches."""
+    for rank, r in enumerate(res):
+        s = span(r[key])
+        log(f"  [{tag}] rank {rank}: {s['sec']:.3f}s, peak device memory "
+            f"{s['peak_gib']:.2f} GiB, collectives {s['comm']['calls']} "
+            f"calls / {s['comm']['bytes']} bytes ({s['comm']['host_bytes']} "
+            "through the host); launches " + " ".join(
+                f"{k}={v}" for k, v in s["launches"].items()))
+    return span(res[0][key])["launches"]
+
+
+def _par_launch(tag, launches, must, must_not=()):
+    for k in must:
+        if launches[k] == 0:
+            raise AssertionError(f"{tag}: kernel {k} never launched")
+    for k in must_not:
+        if launches[k] != 0:
+            raise AssertionError(f"{tag}: kernel {k} launched "
+                                 f"{launches[k]} times on a path that must "
+                                 "not run it")
+
+
+def phase_parallel(new_hists):
+    """The multi-device modules at full width: three spawns of ranks on
+    the card (3 gloo ranks, 1 NCCL rank, 2 gloo ranks), launches counted
+    inside the ranks and reported by rank 0."""
+    import numpy as np
+
+    counts, results = {}, {}
+    ctx8k = {"n": N, "limbs": L, "special": K, "ctx_seed": 0}
+    giant = {**ctx8k, "d": D}
+    fe = {"n": N, "limbs": FE_L, "special": FE_K, "dnum": FE_DNUM,
+          "ctx_seed": 0, "d": D, "f": F, "blocks": FE_BLOCKS,
+          "weights": "bench"}
+    model = {"d": D, "f": F, "blocks": BLOCKS, "head_size": HEAD_SIZE,
+             "vocab": 1000, "model_seed": 42}
+    from fhe_spear_tpu_torch.ops.bsgs import bsgs_dims
+
+    log(f"parallel: giant matvec D={D} (B={bsgs_dims(D)[1]}), sharded "
+        "server token and "
+        f"sharded chain on 3 gloo ranks; giant matvec on 1 NCCL rank; limb "
+        f"rotation at N={PAR_LIMB_N}, key-sharded chain, sharded four-step "
+        "and block pipeline on 2 gloo ranks (ranks share cuda:0)")
+
+    # -- spawn 1: 3 gloo ranks --------------------------------------------
+    res = _par_spawn("giant", 3, "gloo", [
+        ("giant", "giant_matvec", giant),
+        ("giant_mxu", "giant_matvec", {**giant, "backend": "mxu"}),
+        ("token", "sharded_token", {**ctx8k, **model, "tokens": 2}),
+        ("chain", "sharded_chain", fe)])
+    for key, bar, must, must_not in (
+            ("giant", PAR_GIANT_ERR, NTT_KERNELS, ("fourstep_fwd",
+                                                   "fourstep_inv")),
+            ("giant_mxu", PAR_GIANT_ERR_MXU, ("fourstep_fwd", "fourstep_inv"),
+             NTT_KERNELS)):
+        tag = f"parallel {key}"
+        _par_agree(tag, res, key)
+        r = res[0][key]
+        log(f"  [{tag}] groups by rank "
+            f"{[x[key]['groups'] for x in res]}; max_err {r['err']:.3e} "
+            f"(bar {bar}); first call {r['first']['sec']:.3f}s (stacks the "
+            f"keys)")
+        launches = _par_span(tag, res, key, lambda x: x["steady"])
+        if not (r["err"] < bar and r["repeat_equal"] and r["level"] == L - 1):
+            raise AssertionError(f"{tag}: {r}")
+        _par_launch(tag, launches, must, must_not)
+        counts[f"parallel_{key}"] = launches
+        results[key] = {k: [x[key][k] for x in res] for k in
+                        ("err", "first", "steady")}
+    tag = "parallel token"
+    toks = res[0]["token"]["tokens"]
+    for i in range(len(toks)):
+        _par_agree(tag, res, "token", lambda r: r["tokens"][i]["digest"])
+        t = toks[i]
+        log(f"  [{tag}] token {i}: ref={t['ref']} fhe={t['fhe']} corr="
+            f"{t['corr']:.6f}")
+        launches = _par_span(f"{tag} {i}", res, "token",
+                             lambda x: x["tokens"][i])
+        if t["ref"] != t["fhe"] or not t["corr"] >= CORR_CLASSIC:
+            raise AssertionError(f"{tag}: token off its twin: {toks}")
+    _par_launch(tag, launches, NTT_KERNELS)
+    counts["parallel_token"] = launches
+    results["token"] = [x["token"] for x in res]
+    tag = "parallel chain"
+    _par_agree(tag, res, "chain")
+    stats = res[0]["chain"]["stats"]
+    log(f"  [{tag}] s/block " + ", ".join(f"{s['sec']:.3f}" for s in stats)
+        + " (host pre-encode " + ", ".join(f"{s['encode_s']:.3f}"
+                                           for s in stats) + " s)"
+        + "; corr " + ", ".join(f"{s['corr']:.9f}" for s in stats)
+        + "; max_err " + ", ".join(f"{s['max_err']:.2e}" for s in stats)
+        + f"; levels {[s['level'] for s in stats]}")
+    launches = _par_span(tag, res, "chain")
+    if len(stats) != FE_BLOCKS or not all(
+            s["corr"] > FE_CORR and s["max_err"] < FE_ERR for s in stats):
+        raise AssertionError(f"{tag}: block off the plaintext oracle: {stats}")
+    _par_launch(tag, launches, NTT_KERNELS)
+    counts["parallel_chain"] = launches
+    results["chain"] = [x["chain"] for x in res]
+
+    # -- spawn 2: one NCCL rank (int64 collectives on the device) ----------
+    res = _par_spawn("nccl", 1, "nccl", [
+        ("giant", "giant_matvec", giant),
+        ("ops", "collective_ops", {})])
+    tag = "parallel giant nccl"
+    r = res[0]["giant"]
+    ops = res[0]["ops"]
+    if not (r["err"] < PAR_GIANT_ERR and r["repeat_equal"]):
+        raise AssertionError(f"{tag}: {r}")
+    p = 2**31 - 1
+    if not (np.all(ops["psum"] == p - 1) and ops["rows"].shape == (1, 4)
+            and np.array_equal(ops["a2a"], np.arange(2)[None])):
+        raise AssertionError(f"parallel nccl collectives: {ops}")
+    log(f"  [{tag}] max_err {r['err']:.3e}; psum_mod, all_gather_rows and "
+        "all_to_all of int64 on NCCL equal their expected words")
+    launches = _par_span(tag, res, "giant", lambda x: x["steady"])
+    _par_launch(tag, launches, NTT_KERNELS)
+    counts["parallel_giant_nccl"] = launches
+    results["giant_nccl"] = {"err": r["err"], "steady": r["steady"]}
+
+    # -- spawn 3: 2 gloo ranks ---------------------------------------------
+    res = _par_spawn("limb", 2, "gloo", [
+        ("limb", "limb_rotate", {"n": PAR_LIMB_N, "limbs": PAR_LIMB_L,
+                                 "special": PAR_LIMB_K, "ctx_seed": 0}),
+        ("keys", "key_sharded_chain", fe),
+        ("ntt", "ntt_sharded", {"n": N, "rows": 3, "n1": 64}),
+        ("pipe", "pipeline", {**ctx8k, **model, "ctx_seed": 0,
+                              "streams": [5, 11], "tokens": 2,
+                              "cache_dir": str(PREENC_CACHE)})])
+    tag = "parallel limb rotation"
+    _par_agree(tag, res, "limb")
+    r = res[0]["limb"]
+    if not all(x["limb"]["equal"] for x in res) or not r["err"] < 1e-3:
+        raise AssertionError(f"{tag}: words differ from ctx.rotate: {r}")
+    log(f"  [{tag}] N={PAR_LIMB_N} L={PAR_LIMB_L} K={PAR_LIMB_K}, rows by "
+        f"rank {[(x['limb']['rows'][0], x['limb']['rows'][-1]) for x in res]}"
+        f": words equal ctx.rotate on every rank; max_err {r['err']:.2e}; "
+        f"ctx.rotate {r['single']['sec']:.3f}s, sharded + gather "
+        f"{r['sharded']['sec']:.3f}s, sharded alone {r['local']['sec']:.3f}s")
+    launches = _par_span(tag, res, "limb", lambda x: x["local"])
+    _par_launch(tag, launches, NTT_KERNELS)
+    counts["parallel_limb_rotation"] = launches
+    new_hists["parallel limb rotation"] = r["local"]["ntt_by_shape"]
+    _log_hist(tag, r["local"]["ntt_by_shape"])
+    results["limb"] = [{k: x["limb"][k] for k in ("err", "single", "sharded",
+                                                  "local")} for x in res]
+    tag = "parallel key-sharded chain"
+    _par_agree(tag, res, "keys")
+    r = res[0]["keys"]
+    if not all(x["keys"]["equal"] for x in res):
+        raise AssertionError(f"{tag}: words differ from the unsharded chain")
+    log(f"  [{tag}] words equal the unsharded chain's; corr {r['corr']:.9f}, "
+        f"max_err {r['max_err']:.2e}, level {r['level']}; key rows a rank "
+        f"{r['key_rows']} of {FE_L + FE_K}; unsharded "
+        f"{r['single']['sec']:.3f}s, sharded {r['sharded']['sec']:.3f}s")
+    launches = _par_span(tag, res, "keys", lambda x: x["sharded"])
+    _par_launch(tag, launches, NTT_KERNELS)
+    counts["parallel_key_sharded_chain"] = launches
+    new_hists["parallel key-sharded chain"] = r["sharded"]["ntt_by_shape"]
+    _log_hist(tag, r["sharded"]["ntt_by_shape"])
+    results["keys"] = [{k: x["keys"][k] for k in ("corr", "max_err",
+                                                  "single", "sharded")}
+                       for x in res]
+    tag = "parallel four-step"
+    _par_agree(tag, res, "ntt")
+    r = res[0]["ntt"]
+    if not all(x["ntt"]["equal"] for x in res):
+        raise AssertionError(f"{tag}: words differ from FourStepNtt.ntt")
+    log(f"  [{tag}] N={N}, 3 rows, 64 x {N // 64}: words equal "
+        "FourStepNtt.ntt; "
+        f"single {r['single']['sec'] * 1e3:.3f} ms, sharded + gather "
+        f"{r['sharded']['sec'] * 1e3:.3f} ms")
+    counts["parallel_fourstep_sharded"] = _par_span(tag, res, "ntt",
+                                                    lambda x: x["sharded"])
+    results["ntt"] = [{k: x["ntt"][k] for k in ("single", "sharded")}
+                      for x in res]
+    tag = "parallel pipeline"
+    for i, step in enumerate(res[0]["pipe"]["tokens"]):
+        _par_agree(tag, res, "pipe", lambda r: r["tokens"][i]["digest"])
+        log(f"  [{tag}] token {i}: " + ", ".join(
+            f"stream {s}: ref={x['ref']} fhe={x['fhe']} corr={x['corr']:.6f}"
+            f" wkv_err={x['wkv_err']:.2e}"
+            for s, x in enumerate(step["streams"])))
+        launches = _par_span(f"{tag} {i}", res, "pipe",
+                             lambda x: x["tokens"][i])
+        for x in step["streams"]:
+            if x["ref"] != x["fhe"] or not x["corr"] >= CORR_DEVICE:
+                raise AssertionError(f"{tag}: stream off its twin: {step}")
+    _par_launch(tag, launches, NTT_KERNELS)
+    counts["parallel_pipeline"] = launches
+    results["pipe"] = [x["pipe"] for x in res]
+    return counts, _par_plain(results)
+
+
 def phase_new_shapes(new_hists, timing):
     """Hold K1/K2 bitwise (plain and fused entry points) at the largest
     shape (most polynomials, then most launches) each new path launched,
@@ -1661,7 +1932,7 @@ def main(argv=None):
               "access_control": phase_access_control,
               "fhesim": phase_fhesim, "naive": phase_naive,
               "checkpoints": phase_checkpoints,
-              "profiling": phase_profiling}
+              "profiling": phase_profiling, "parallel": phase_parallel}
     only = [a.split("=", 1)[1].split(",") for a in argv
             if a.startswith("--only=")]
     run = only[0] if only else ["paths"] + list(phases)
@@ -1679,7 +1950,12 @@ def main(argv=None):
         if tag not in run:
             continue
         t0 = time.perf_counter()
-        counts[tag], results[tag] = phase(new_hists)
+        c, results[tag] = phase(new_hists)
+        # the parallel phase reports one launch count per sharded path
+        if tag == "parallel":
+            counts.update(c)
+        else:
+            counts[tag] = c
         split[tag] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if "paths" in run:

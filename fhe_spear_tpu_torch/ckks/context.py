@@ -38,8 +38,13 @@ bit.  Sums of canonical residues are taken exactly in int64 and reduced
 once (`% p`), which gives the same canonical word as the reference's
 chains of modular adds.
 
-Left out until a later slice: `shard_eval_keys` (the multi-device
-modules).
+`shard_eval_keys(group)` partitions the evaluation keys on their limb-row
+axis over a rank group (`parallel.limb_sharded.KeyShard`): every keyswitch
+then extends its digits to this rank's key rows only, contracts them with
+those rows, gathers the special rows for the mod-down and all-gathers the
+output limb rows (`_keyswitch`), so that the result is the replicated
+ciphertext of the unsharded context, word for word.  The reference's
+`NamedSharding` argument becomes a `parallel.collectives.RankGroup`.
 
 `key_epoch` counts replacements of the key material (`set_secret_key`,
 `utils.serialization.load_eval_keys`); `ops.bsgs.BsgsMatvec` compares it
@@ -280,6 +285,8 @@ class CkksContext:
         self._idx_cache: dict = {}
         self._perm_cache: dict = {}
         self._digit_cache: dict = {}
+        # limb-row layout of the eval keys once shard_eval_keys ran
+        self._key_shard = None
 
         # --- keys (host draw order of the reference) ---
         h = params.secret_hamming_weight
@@ -351,6 +358,14 @@ class CkksContext:
         """(p, pinv) of the first l limbs, [l, 1] device tensors."""
         return self.ntt.p[:l], self.ntt.pinv[:l]
 
+    def _rows(self, table: torch.Tensor, rows, dim: int = 0) -> torch.Tensor:
+        """Rows `rows` of a per-limb table along `dim`: a slice where they
+        are contiguous (every unsharded call), a gather otherwise."""
+        r0 = rows[0] if rows else 0
+        if tuple(rows) == tuple(range(r0, r0 + len(rows))):
+            return table.narrow(dim, r0, len(rows))
+        return table.index_select(dim, self._idx(rows))
+
     def _reduce_rows(self, coeffs: np.ndarray, rows) -> np.ndarray:
         """Centered int64 coefficients [..., N] -> residues [..., R, N]."""
         q = self.q_np[list(rows)].astype(np.int64)
@@ -380,6 +395,47 @@ class CkksContext:
     def targets(self, l: int) -> tuple:
         """Active limb rows during keyswitch at level l: scale limbs + specials."""
         return tuple(range(l)) + tuple(range(self.L, self.L + self.K))
+
+    def _ks_targets(self, l: int) -> tuple:
+        """The target rows this process extends digits to at level l: all of
+        `targets(l)`, or this rank's share once the keys are sharded."""
+        if self._key_shard is None:
+            return self.targets(l)
+        return self._key_shard.targets(l)
+
+    def _key_rows(self, l: int) -> tuple:
+        """Indices of `_ks_targets(l)` into the row axis of the stored keys."""
+        if self._key_shard is None:
+            return self.targets(l)
+        return self._key_shard.key_rows(l)
+
+    def shard_eval_keys(self, group) -> None:
+        """Partition every evaluation key (relin, Galois, identity, and the
+        ones made later) on its limb-row axis over the rank group `group`:
+        the [dnum, L+K, N] keys are zero-padded to a multiple of the group
+        size (pad rows are never targets) and each rank keeps its
+        contiguous block of rows, so that key memory divides by the size.
+        Keyswitches then run the explicit limb-sharded path (`_keyswitch`),
+        whose replicated results equal the unsharded context's word for
+        word.  The key epoch is bumped, so that engines rebuild their key
+        stacks from the rank's rows."""
+        from ..parallel.limb_sharded import KeyShard
+
+        if self._key_shard is not None:
+            raise ValueError("the evaluation keys are already sharded")
+        self._key_shard = KeyShard(self, group)
+        self.relin_key = self._key_shard.place(self.relin_key)
+        for g, k in list(self.galois_keys.items()):
+            self.galois_keys[g] = self._key_shard.place(k)
+        if "_identity_ksk" in self.__dict__:
+            self._identity_ksk = self._key_shard.place(self._identity_ksk)
+        self._digit_cache.clear()
+        self.key_epoch += 1
+
+    def _place_key(self, k: KeySwitchKey) -> KeySwitchKey:
+        """A freshly made key as this context stores it: this rank's rows
+        once the keys are sharded, unchanged otherwise."""
+        return k if self._key_shard is None else self._key_shard.place(k)
 
     # ------------------------------------------------------------------
     # key generation
@@ -435,7 +491,10 @@ class CkksContext:
         limb = torch.arange(self.L, device=self.device)
         b[..., dof, limb, :] = add_mod(b[..., dof, limb, :], msg,
                                        ntt.p[: self.L])
-        return KeySwitchKey(ntt.to_mont(b, all_rows), ntt.to_mont(a, all_rows))
+        # a key made after shard_eval_keys (ensure_galois, the identity
+        # key, set_secret_key's relin key) gets the same rows and padding
+        return self._place_key(KeySwitchKey(ntt.to_mont(b, all_rows),
+                                            ntt.to_mont(a, all_rows)))
 
     def _make_ksk(self, sprime_eval: torch.Tensor) -> KeySwitchKey:
         """Keyswitch key for s' -> s.  sprime_eval: [L+K, N] eval/Mont."""
@@ -677,8 +736,7 @@ class CkksContext:
             return Ciphertext(torch.stack([d0, d1, d2], dim=-3),
                               x.scale * y.scale)
         kb, ka = self.select_key(self.relin_key, l)
-        ks = self._mod_down(self._apply_ksk(self._decompose(d2, l), kb, ka, l),
-                            l)
+        ks = self._keyswitch(self._decompose(d2, l), kb, ka, l)
         c = torch.stack([add_mod(d0, ks[..., 0, :, :], p),
                          add_mod(d1, ks[..., 1, :, :], p)], dim=-3)
         return Ciphertext(c, x.scale * y.scale)
@@ -732,16 +790,17 @@ class CkksContext:
         r_neg = cond_sub(r + (p_t - qm), p_t)
         return torch.where(c >= self._sel(self.q_half, src_rows), r_neg, r)
 
-    def _digit_tables(self, l: int) -> dict:
-        """Constants of the grouped fast base conversion at level l (built
-        once per level).  Group j's active members are limbs
-        [j*g, min((j+1)*g, l)); ragged groups are zero-padded to g (their
-        hatinv/muA/B64/qhat are 0, and limb_idx clips to l-1)."""
-        tb = self._digit_cache.get(l)
+    def _digit_tables(self, l: int, tgt: tuple | None = None) -> dict:
+        """Constants of the grouped fast base conversion at level l onto the
+        target rows tgt (default `targets(l)`; built once per pair).  Group
+        j's active members are limbs [j*g, min((j+1)*g, l)); ragged groups
+        are zero-padded to g (their hatinv/muA/B64/qhat are 0, and limb_idx
+        clips to l-1)."""
+        tgt = self.targets(l) if tgt is None else tgt
+        tb = self._digit_cache.get((l, tgt))
         if tb is not None:
             return tb
         g, d_l = self.gsize, self.num_digits(l)
-        tgt = self.targets(l)
         T = len(tgt)
         q = self.q_np
         r_of = lambda i: self.primes[i].mont_r
@@ -777,22 +836,24 @@ class CkksContext:
               "p_mem": p_np[li][..., None], "pinv_mem": pinv_np[li][..., None],
               "muA": muA, "B64": B64, "qhat_r": qhat_r, "qj_r": qj_r}
         tb = {k: self._tensor(v) for k, v in tb.items()}
-        self._digit_cache[l] = tb
+        self._digit_cache[(l, tgt)] = tb
         return tb
 
-    def _fbc_digits(self, coeffs: torch.Tensor, l: int) -> torch.Tensor:
+    def _fbc_digits(self, coeffs: torch.Tensor, l: int,
+                    tgt: tuple | None = None) -> torch.Tensor:
         """Grouped digits via approximate-centered fast base conversion.
 
         coeffs: [..., l, N] plain coefficient-domain residues.  Returns
         [..., d_l, T, N]: for each group j an integer representative of
-        c mod Q_j extended to all target limbs.  The centring correction
-        v = round(sum_i y_i / q_i) is the reference's 32-bit fixed point:
+        c mod Q_j extended to the target rows tgt (default `targets(l)`).
+        The centring correction v = round(sum_i y_i / q_i) is the
+        reference's 32-bit fixed point:
         u_i = (y_i*muA + mulhi(y_i, B64)) mod 2^32, and v = hi + (lo >> 31)
         of the wrapping (hi, lo) sum, which the exact int64 sum of the u_i
         holds bit for bit.  An off-by-one v changes the representative by
         Q_j (a rare, bounded noise increment since P >= Q_j)."""
-        tb = self._digit_tables(l)
-        tgt = self.targets(l)
+        tgt = self.targets(l) if tgt is None else tgt
+        tb = self._digit_tables(l, tgt)
         p_t, pinv_t = self._sel(self.ntt.p, tgt), self._sel(self.ntt.pinv, tgt)
         # y_i = [c * Qhat_i^-1]_{q_i}, zero on padded members
         y = coeffs.index_select(-2, tb["limb_idx"].reshape(-1))
@@ -816,43 +877,71 @@ class CkksContext:
     def _decompose(self, c1: torch.Tensor, l: int) -> torch.Tensor:
         """[..., l, N] Mont eval -> extended digits [..., d_l, T, N], plain,
         eval (d_l = l for single-limb digits, ceil(l/gsize) when dnum is
-        set)."""
-        ntt = self.ntt
-        rows = tuple(range(l))
-        tgt = self.targets(l)
-        coeffs = ntt.intt_from_mont(c1, rows)
+        set), on the target rows `_ks_targets(l)`."""
+        coeffs = self.ntt.intt_from_mont(c1, tuple(range(l)))
+        return self._extend_digits(coeffs, l, self._ks_targets(l))
+
+    def _extend_digits(self, coeffs: torch.Tensor, l: int, tgt: tuple
+                       ) -> torch.Tensor:
+        """Plain digit coefficients [..., l, N] -> extended digits
+        [..., d_l, len(tgt), N] in the eval domain of the rows tgt."""
+        if not tgt:
+            return coeffs.new_zeros(coeffs.shape[:-2]
+                                    + (self.num_digits(l), 0, self.n))
         if self.gsize == 1:
-            D = self._extend_centered(coeffs, rows, tgt)
+            D = self._extend_centered(coeffs, tuple(range(l)), tgt)
         else:
-            D = self._fbc_digits(coeffs, l)
-        return ntt.ntt(D, tgt)
+            D = self._fbc_digits(coeffs, l, tgt)
+        return self.ntt.ntt(D, tgt)
 
     def select_key(self, ksk: KeySwitchKey, l: int):
-        """Slice a keyswitch key down to the digits/rows active at level l."""
-        idx = self._idx(self.targets(l))
+        """Slice a keyswitch key down to the digits/rows active at level l
+        (this rank's rows of them once the keys are sharded)."""
+        idx = self._idx(self._key_rows(l))
         d_l = self.num_digits(l)
         return (ksk.b[..., :d_l, :, :].index_select(-2, idx),
                 ksk.a[..., :d_l, :, :].index_select(-2, idx))
 
     def _apply_ksk(self, D: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
-                   l: int) -> torch.Tensor:
-        """sum_j D_j * key_j over digits -> [..., 2, T, N] Mont eval.
-        b, a: level-selected key tensors [(...,) d_l, T, N]."""
-        tgt = self.targets(l)
+                   l: int, tgt: tuple | None = None) -> torch.Tensor:
+        """sum_j D_j * key_j over digits -> [..., 2, T, N] Mont eval on the
+        target rows tgt (default `_ks_targets(l)`).  b, a: level-selected
+        key tensors [(...,) d_l, T, N]."""
+        tgt = self._ks_targets(l) if tgt is None else tgt
         p_t, pinv_t = self._sel(self.ntt.p, tgt), self._sel(self.ntt.pinv, tgt)
         ks0 = mont_mul(D, b, p_t, pinv_t).sum(dim=-3) % p_t
         ks1 = mont_mul(D, a, p_t, pinv_t).sum(dim=-3) % p_t
         return torch.stack([ks0, ks1], dim=-3)
 
+    def _keyswitch(self, D: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor,
+                   l: int) -> torch.Tensor:
+        """Extended digits D [..., d_l, T, N] against level-selected keys
+        kb/ka -> the switched pair [..., 2, l, N] (contraction, then the
+        mod-down).  With sharded keys every rank contracts its own rows and
+        the result is gathered: the same words on every rank."""
+        if self._key_shard is not None:
+            return self._key_shard.switch(D, kb, ka, l)
+        return self._mod_down(self._apply_ksk(D, kb, ka, l), l)
+
     def _mod_down(self, ks: torch.Tensor, l: int) -> torch.Tensor:
         """[..., 2, l+K, N] Mont eval over Q_l*P -> [..., 2, l, N] Mont eval
         over Q_l (divide by P, CENTERED fast base conversion: the
         representative error stays <= 1 unit)."""
+        return self._mod_down_rows(ks[..., :l, :], ks[..., l:, :],
+                                   tuple(range(l)))
+
+    def _mod_down_rows(self, ks_q: torch.Tensor, ks_sp: torch.Tensor,
+                       rows: tuple) -> torch.Tensor:
+        """The mod-down of the limb rows `rows` alone: ks_q [..., 2, R, N]
+        on those rows, ks_sp [..., 2, K, N] on the special rows -> [..., 2,
+        R, N].  Each row's words depend only on that row and the specials,
+        so a limb-sharded caller gets the unsharded words for its rows."""
+        if not rows:
+            return ks_q
         ntt = self.ntt
-        rows = tuple(range(l))
         sp_rows = tuple(range(self.L, self.L + self.K))
-        p, pinv = self._p(l)
-        t = ntt.intt_from_mont(ks[..., l:, :], sp_rows)
+        p, pinv = self._rows(ntt.p, rows), self._rows(ntt.pinv, rows)
+        t = ntt.intt_from_mont(ks_sp, sp_rows)
         if self.K > 1:
             p_sp = self._sel(ntt.p, sp_rows)
             y = mont_mul(t, self.phat_inv_mont, p_sp,
@@ -864,15 +953,18 @@ class CkksContext:
                     + mul_hi_u32(y, self._sp_B64)) & MASK32
             tot = u32f.sum(dim=-2)
             v = (tot >> 32) + ((tot & MASK32) >> 31)            # [.., N]
-            r = barrett_reduce(y[..., :, None, :], p[None], self.mu[:l][None])
-            r = mont_mul(r, self.phat_mod_mont[:, :l], p, pinv)
+            r = barrett_reduce(y[..., :, None, :], p[None],
+                               self._rows(self.mu, rows)[None])
+            r = mont_mul(r, self._rows(self.phat_mod_mont, rows, dim=1), p,
+                         pinv)
             u = r.sum(dim=-3) % p
-            vq = mont_mul(v[..., None, :], self.Pmod_mont[:l], p, pinv)
+            vq = mont_mul(v[..., None, :], self._rows(self.Pmod_mont, rows),
+                          p, pinv)
             u = sub_mod(u, vq, p)
         else:
             u = self._extend_centered(t, sp_rows, rows)[..., 0, :, :]
         u = ntt.ntt_to_mont(u, rows)
-        return mont_mul(sub_mod(ks[..., :l, :], u, p), self.Pinv_mont[:l],
+        return mont_mul(sub_mod(ks_q, u, p), self._rows(self.Pinv_mont, rows),
                         p, pinv)
 
     def keyswitch_rotated(self, c: torch.Tensor, D: torch.Tensor,
@@ -884,7 +976,7 @@ class CkksContext:
         rotations when perm and keys carry one)."""
         p, _ = self._p(l)
         Dg = _take_last(D, perm)
-        ks = self._mod_down(self._apply_ksk(Dg, kb, ka, l), l)
+        ks = self._keyswitch(Dg, kb, ka, l)
         c0 = add_mod(_take_last(c[0], perm), ks[..., 0, :, :], p)
         return torch.stack([c0, ks[..., 1, :, :]], dim=-3)
 
@@ -909,9 +1001,7 @@ class CkksContext:
         p, _ = self._p(l)
         cp = c.index_select(-1, self.perm(g))
         kb, ka = self.select_key(self.galois_keys[g], l)
-        ks = self._mod_down(
-            self._apply_ksk(self._decompose(cp[..., 1, :, :], l), kb, ka, l),
-            l)
+        ks = self._keyswitch(self._decompose(cp[..., 1, :, :], l), kb, ka, l)
         return torch.stack([add_mod(cp[..., 0, :, :], ks[..., 0, :, :], p),
                             ks[..., 1, :, :]], dim=-3)
 

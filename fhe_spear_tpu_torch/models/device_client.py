@@ -65,11 +65,15 @@ class DeviceTokenRunner:
     once."""
 
     def __init__(self, ctx: CkksContext, model: RwkvModel, level: int = 3,
-                 cache_dir: str | None = None):
+                 cache_dir: str | None = None, blocks: range | None = None):
+        """blocks: the span of blocks whose diagonals and client weights
+        this runner stages (default all; `parallel.block_pipeline` gives
+        each rank its own span).  A token needs every block."""
         self.ctx = ctx
         self.model = model
         self.level = level
         self.device = ctx.device
+        self.blocks = range(len(model.blocks)) if blocks is None else blocks
         d, f = model.d, model.blocks[0].f
         self.d, self.f = d, f
         # draws the rotation keys from ctx.rng first, then the runner's
@@ -104,7 +108,8 @@ class DeviceTokenRunner:
 
         stacks = {"rkv": [], "o": [], "fk": [], "fv": []}
         names = list(stacks)
-        for bi, blk in enumerate(self.model.blocks):
+        for bi in self.blocks:
+            blk = self.model.blocks[bi]
             bdir = (os.path.join(cache_dir, f"dc{bi}_{d}_{self.f}_"
                                  f"{self.ctx.n}_{block_hash(blk)}")
                     if cache_dir else None)
@@ -161,8 +166,9 @@ class DeviceTokenRunner:
     def _build_client_stacks(self):
         self.cw = {
             name: torch.as_tensor(np.stack(
-                [np.asarray(getattr(b, name), dtype=np.float32)
-                 for b in self.model.blocks]), device=self.device)
+                [np.asarray(getattr(self.model.blocks[bi], name),
+                            dtype=np.float32) for bi in self.blocks]),
+                device=self.device)
             for name in _CLIENT_FIELDS}
 
     # -- encoder tables (device FFT encode/decode) --------------------------
@@ -245,8 +251,9 @@ class DeviceTokenRunner:
         d = self.d
         h, hs = self.model.n_head, self.model.head_size
         S = x.shape[0]
-        w = {k: t[bi] for k, t in self.cw.items()}
-        pt_rkv, pt_o, pt_fk, pt_fv = (self.pt[k][bi]
+        j = bi - self.blocks.start                 # row of the staged span
+        w = {k: t[j] for k, t in self.cw.items()}
+        pt_rkv, pt_o, pt_fk, pt_fv = (self.pt[k][j]
                                       for k in ("rkv", "o", "fk", "fv"))
         sig = torch.sigmoid
 
@@ -330,6 +337,7 @@ class DeviceTokenRunner:
         """All blocks of one token for S streams.  xpa, xpf: [S, nb, d];
         states [S, nb, h, hs, hs] (float32 device tensors)."""
         m = self.model
+        assert len(self.blocks) == len(m.blocks), "a token needs every block"
         x = torch.as_tensor(np.stack([
             layer_norm(np.asarray(m.emb[t], dtype=np.float64), m.ln0_w,
                        m.ln0_b) for t in token_ids]).astype(np.float32),

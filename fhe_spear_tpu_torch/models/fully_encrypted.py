@@ -90,7 +90,7 @@ class FullyEncryptedFfn:
 
     def __init__(self, ctx: CkksContext, d: int, f: int,
                  seq_chunks: bool = False, stage_mode: str = "expanded",
-                 width: int = 1):
+                 key_sharding=None, width: int = 1):
         """seq_chunks: ignored (the reference's lax.map-over-chunks switch;
         the port always runs one chunk at a time, see the module
         docstring).
@@ -99,6 +99,11 @@ class FullyEncryptedFfn:
         [B, G, l, N] (l-proportional memory); "i32" stages them as int32
         coefficients [B, G, N] and RNS-expands one giant chunk at a time
         inside the kernel -- the only mode that fits deep chains.
+
+        key_sharding: the rank group over which the context's evaluation
+        keys are limb-sharded (`CkksContext.shard_eval_keys`, before the
+        first block): the key stacks then divide over the group, and the
+        chain's words equal the unsharded chain's.
 
         width: working-scale width in limbs.  width=2 runs the chain at a
         composite scale Delta_2 ~ 2^56 (two rescales per stage, 6
@@ -113,7 +118,7 @@ class FullyEncryptedFfn:
         self.width = width
         self.ctx = ctx
         self.d, self.f = d, f
-        self.eng = BsgsMatvec(ctx, d)
+        self.eng = BsgsMatvec(ctx, d, key_sharding=key_sharding)
         self.n_chunks = -(-f // d)
         self.stage_mode = stage_mode
 

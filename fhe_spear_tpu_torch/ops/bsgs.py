@@ -21,6 +21,10 @@ Counterpart of `fhe_spear_tpu/ops/bsgs.py` (square-matrix engine,
     selects its level's digits and target rows from it (a deep chain
     walks ~20 levels).
   * Exactly one rescale at the end: 1 level per call.
+  * With `key_sharding` (a rank group whose context ran
+    `CkksContext.shard_eval_keys`), the stacks hold this rank's key rows
+    only, and every keyswitch runs the context's limb-sharded path: the
+    words are the unsharded engine's.
 
 Sums of canonical residues are exact in int64 and reduced once (`% p`),
 which gives the words of the reference's modular tree reductions.  The
@@ -52,8 +56,8 @@ from ..core.modops import add_mod, mont_mul
 from ..native import encode_i32
 
 __all__ = ["bsgs_dims", "bsgs_kernel", "BsgsMatvec", "DiagonalMatvec",
-           "EncodedDiagonals", "extract_diagonals", "rns_expand",
-           "rns_expand_wide"]
+           "EncodedDiagonals", "extract_diagonals", "level_keys",
+           "rns_expand", "rns_expand_wide", "rotate_sum", "stack_keys"]
 
 # rotated baby digits [S, d_l, T, N] int64 per batched keyswitch: the
 # keyswitch's transients are a few times this (1 GiB: one batch for every
@@ -120,7 +124,11 @@ class BsgsMatvec:
         y   = eng(ct_x, pt)              # level l -> l-1, slots = W @ x
     """
 
-    def __init__(self, ctx: CkksContext, d: int):
+    def __init__(self, ctx: CkksContext, d: int, key_sharding=None):
+        """key_sharding: the rank group over which the context's evaluation
+        keys are (or will be, before the first call) limb-sharded by
+        `CkksContext.shard_eval_keys`; the stacks then hold this rank's key
+        rows, so their memory divides by the group size."""
         assert ctx.slots % d == 0, (d, ctx.slots)
         self.ctx = ctx
         self.d = d
@@ -128,6 +136,7 @@ class BsgsMatvec:
         self.baby_steps = tuple(range(1, self.G))
         self.giant_steps = tuple(g * self.G for g in range(1, self.B))
         self.giant_chunk = max(1, int(os.environ.get("FHE_GIANT_CHUNK", "8")))
+        self.key_sharding = key_sharding
         ctx.ensure_galois(self.baby_steps + self.giant_steps)
         self._full = None
 
@@ -192,14 +201,7 @@ class BsgsMatvec:
         digits and target rows are selected from the one full stack on each
         call (the caller holds the copy only while it runs; at the top level
         the stack itself is returned)."""
-        ctx = self.ctx
-        d_l, tgt = ctx.num_digits(l), ctx.targets(l)
-        if d_l == ctx.dnum and len(tgt) == ctx.L + ctx.K:
-            return self._stacks()
-        idx = ctx._idx(tgt)
-        bp, bkb, bka, gp, gkb, gka = self._stacks()
-        sel = lambda k: k[:, :d_l].index_select(2, idx) if k.numel() else k
-        return bp, sel(bkb), sel(bka), gp, sel(gkb), sel(gka)
+        return level_keys(self.ctx, self._stacks(), l)
 
     def _stacks(self):
         """The automorphism permutations [S, N] and the full rotation keys
@@ -212,23 +214,14 @@ class BsgsMatvec:
             self._full = None                   # free the stale stacks first
             ctx.ensure_galois(self.baby_steps + self.giant_steps)
         if self._full is None:
-
-            def stack_keys(steps):
-                gs = [ctx.galois_element(s) for s in steps]
-                if not gs:
-                    empty = torch.empty((0,), dtype=torch.long,
-                                        device=ctx.device)
-                    return (empty, empty, empty)
-                # a step = 0 mod slots (Galois element 1) has no rotation
-                # key: its lane switches with the identity key
-                keys = [ctx.identity_ksk() if g == 1 else ctx.galois_keys[g]
-                        for g in gs]
-                return (torch.stack([ctx.perm(g) for g in gs]),
-                        torch.stack([k.b for k in keys]),
-                        torch.stack([k.a for k in keys]))
-
-            self._full = (stack_keys(self.baby_steps)
-                          + stack_keys(self.giant_steps))
+            if self.key_sharding is not None and (
+                    ctx._key_shard is None
+                    or ctx._key_shard.group is not self.key_sharding):
+                raise ValueError("key_sharding is set but the context's keys "
+                                 "are not sharded over that group "
+                                 "(CkksContext.shard_eval_keys)")
+            self._full = (stack_keys(ctx, self.baby_steps)
+                          + stack_keys(ctx, self.giant_steps))
             self._full_epoch = ctx.key_epoch
         return self._full
 
@@ -239,11 +232,21 @@ class BsgsMatvec:
         if not self.baby_steps:
             return c[None]
         D1 = self.ctx._decompose(c[1], l)
-        bc = max(1, BABY_DIGIT_BYTES // (D1.numel() * D1.element_size()))
+        # a rank of a key-sharded context may hold no target row at level l
+        bc = max(1, BABY_DIGIT_BYTES
+                 // max(1, D1.numel() * D1.element_size()))
         rots = [self.ctx.keyswitch_rotated(c, D1, bp[i:i + bc],
                                            bkb[i:i + bc], bka[i:i + bc], l)
                 for i in range(0, len(self.baby_steps), bc)]
         return torch.cat([c[None]] + rots)
+
+    def contract(self, babies: torch.Tensor, ptg: torch.Tensor, l: int
+                 ) -> torch.Tensor:
+        """sum_b babies[b] * ptg[..., b]: [G, 2, l, N] x [..., G, l, N]
+        -> [..., 2, l, N]."""
+        p, pinv = self.ctx._p(l)
+        prod = mont_mul(babies, ptg[..., :, None, :, :], p, pinv)
+        return prod.sum(dim=-4) % p
 
     def giants(self, babies: torch.Tensor, pt: torch.Tensor, l: int,
                gp, gkb, gka, i32: bool = False, wide: bool = False
@@ -253,7 +256,7 @@ class BsgsMatvec:
         [B, G, 2, N] int32 planes when wide), then the rescale ->
         [2, l-1, N]."""
         ctx = self.ctx
-        p, pinv = ctx._p(l)
+        p, _ = ctx._p(l)
         if wide:
             expand = lambda ptg: rns_expand_wide(ctx, ptg, l)
         elif i32:
@@ -261,26 +264,14 @@ class BsgsMatvec:
         else:
             expand = lambda ptg: ptg
 
-        def contract(ptg):
-            """sum_b babies[b] * ptg[..., b]: [G, 2, l, N] x [..., G, l, N]
-            -> [..., 2, l, N]."""
-            prod = mont_mul(babies, ptg[..., :, None, :, :], p, pinv)
-            return prod.sum(dim=-4) % p
-
+        contract = lambda ptg: self.contract(babies, ptg, l)
         y = contract(expand(pt[0]))
         ng = len(self.giant_steps)
         for c0 in range(0, ng, self.giant_chunk):
             c1 = min(ng, c0 + self.giant_chunk)
             accs = contract(expand(pt[1 + c0: 1 + c1]))     # [c, 2, l, N]
             perms = gp[c0:c1]
-            D2 = ctx._decompose(accs[:, 1], l)              # [c, d_l, T, N]
-            Dg = torch.gather(D2, -1, perms[:, None, None, :].expand_as(D2))
-            ks = ctx._mod_down(ctx._apply_ksk(Dg, gkb[c0:c1], gka[c0:c1], l),
-                               l)
-            a0 = torch.gather(accs[:, 0], -1,
-                              perms[:, None, :].expand_as(accs[:, 0]))
-            rot0 = add_mod(a0, ks[:, 0], p)
-            part = torch.stack([rot0.sum(dim=0), ks[:, 1].sum(dim=0)]) % p
+            part = rotate_sum(ctx, accs, perms, gkb[c0:c1], gka[c0:c1], l)
             y = add_mod(y, part, p)
         return ctx._rescale_core(y, l)
 
@@ -329,6 +320,7 @@ class DiagonalMatvec(BsgsMatvec):
         self.baby_steps = tuple(u * b for b in range(1, self.G))
         self.giant_steps = tuple(g * self.G * u for g in self._g_list[1:])
         self.giant_chunk = max(1, int(os.environ.get("FHE_GIANT_CHUNK", "8")))
+        self.key_sharding = None
         ctx.ensure_galois(self.baby_steps + self.giant_steps)
         self._full = None
 
@@ -354,6 +346,46 @@ class DiagonalMatvec(BsgsMatvec):
         scale = ctx.scale if scale is None else scale
         return EncodedDiagonals(encode_i32(ctx.encoder, self.slot_table(diags),
                                            scale), scale, ctx.slots)
+
+
+def stack_keys(ctx: CkksContext, steps):
+    """(perms [S, N], kb, ka [S, dnum, rows, N]) of the rotation steps, in
+    order, from the context's stored keys.  A step = 0 mod slots (Galois
+    element 1) has no rotation key: its lane switches with the identity
+    key."""
+    gs = [ctx.galois_element(s) for s in steps]
+    if not gs:
+        empty = torch.empty((0,), dtype=torch.long, device=ctx.device)
+        return (empty, empty, empty)
+    keys = [ctx.identity_ksk() if g == 1 else ctx.galois_keys[g] for g in gs]
+    return (torch.stack([ctx.perm(g) for g in gs]),
+            torch.stack([k.b for k in keys]),
+            torch.stack([k.a for k in keys]))
+
+
+def level_keys(ctx: CkksContext, stacks, l: int):
+    """The level-l digits and key rows of stacks (perms, kb, ka, ...) (the
+    stacks themselves where the level takes every digit and row)."""
+    d_l, rows = ctx.num_digits(l), ctx._key_rows(l)
+    if d_l == ctx.dnum and rows == tuple(range(ctx.relin_key.b.shape[-2])):
+        return stacks
+    idx = ctx._idx(rows)
+    sel = lambda k: k[:, :d_l].index_select(2, idx) if k.numel() else k
+    return tuple(k if i % 3 == 0 else sel(k) for i, k in enumerate(stacks))
+
+
+def rotate_sum(ctx: CkksContext, accs: torch.Tensor, perms: torch.Tensor,
+               kb: torch.Tensor, ka: torch.Tensor, l: int) -> torch.Tensor:
+    """sum_i rot_i(accs[i]) for ciphertexts accs [c, 2, l, N], each by its
+    own automorphism perms[i] with level-selected keys kb/ka [c, d_l, T,
+    N] -> [2, l, N]."""
+    p, _ = ctx._p(l)
+    D2 = ctx._decompose(accs[:, 1], l)              # [c, d_l, T, N]
+    Dg = torch.gather(D2, -1, perms[:, None, None, :].expand_as(D2))
+    ks = ctx._keyswitch(Dg, kb, ka, l)
+    a0 = torch.gather(accs[:, 0], -1, perms[:, None, :].expand_as(accs[:, 0]))
+    rot0 = add_mod(a0, ks[:, 0], p)
+    return torch.stack([rot0.sum(dim=0), ks[:, 1].sum(dim=0)]) % p
 
 
 def bsgs_kernel(eng: BsgsMatvec, l: int, mode: str, i32: bool = False,

@@ -157,7 +157,7 @@ class ColumnPackedRetrieval:
         t2 = mont_mul(d1, q1, p, pinv).sum(dim=1) % p
         # one relinearization of the accumulated c2 term per chunk
         kb, ka = ctx.select_key(ctx.relin_key, l)
-        ks = ctx._mod_down(ctx._apply_ksk(ctx._decompose(t2, l), kb, ka, l), l)
+        ks = ctx._keyswitch(ctx._decompose(t2, l), kb, ka, l)
         c = torch.stack([add_mod(t0, ks[:, 0], p), add_mod(t1, ks[:, 1], p)],
                         dim=1)
         scale = corpus_ct.scale * query_ct.scale / float(ctx.q_np[l - 1])

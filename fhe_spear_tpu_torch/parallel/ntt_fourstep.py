@@ -29,8 +29,13 @@ R^-1, so it equals the reference's 7-bit limbs and 9 mont_mul
 recombination word for word.  `FourStepBackend.ntt` / `intt` launch the kernels for a CUDA tensor
 and run the plain versions for a CPU tensor.
 
-Left out until the multi-device slice: `_sharded_fn` / `ntt_sharded`
-(shard_map + all_to_all).
+Sharded (`FourStepNtt.ntt_sharded`, the reference's `_sharded_fn`): the
+input is sharded on j2 over a rank group, each rank runs its column DFTs
+and twiddle, one `all_to_all` flips the shard axis, and each rank runs its
+row DFTs; the output is sharded on k1.  The reference computes it in XLA,
+outside any Pallas kernel, so the port runs the exact torch contraction
+`_matmul_mod` (elementwise Montgomery products and an int64 sum: there is
+no int64 `torch.matmul` on CUDA).
 """
 
 from __future__ import annotations
@@ -263,6 +268,46 @@ class FourStepNtt:
     def ntt_stockham_order(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         """Four-step NTT permuted to match core/ntt.py bitwise."""
         return self.ntt(x, rows).index_select(-1, self.to_stockham)
+
+    # -- sharded: j2-sharded input, ONE all-to-all, k1-sharded output ------
+
+    def shard_j2(self, x: torch.Tensor, group) -> torch.Tensor:
+        """This rank's j2 columns [R, N1, N2/size] of coefficients [R, N]."""
+        m = self.n2 // group.size
+        x = x.reshape(x.shape[:-1] + (self.n1, self.n2))
+        return x[..., group.rank * m:(group.rank + 1) * m]
+
+    def gather_k1(self, b: torch.Tensor, group) -> torch.Tensor:
+        """Every rank's k1 columns [R, N2, N1/size] -> bins [R, N] (bin
+        k = k2*N1 + k1)."""
+        from .collectives import all_gather
+
+        g = all_gather(b, group)                       # [size, R, N2, n1loc]
+        g = g.permute(1, 2, 0, 3)                      # [R, N2, size, n1loc]
+        return g.reshape(b.shape[0], self.base.n)
+
+    def ntt_sharded(self, x: torch.Tensor, group, rows=None) -> torch.Tensor:
+        """x [R, N1, N2/size] Mont, this rank's j2 columns -> [R, N2,
+        N1/size] Mont, its k1 columns of the four-step bins: local column
+        DFTs and twiddle, one all_to_all, local row DFTs."""
+        from .collectives import all_to_all
+
+        n1, n2, size = self.n1, self.n2, group.size
+        assert n1 % size == 0 and n2 % size == 0, (n1, n2, size)
+        j2 = slice(group.rank * (n2 // size), (group.rank + 1) * (n2 // size))
+        p, pinv = self._sel_np(rows, "p"), self._sel_np(rows, "pinv")
+        p2, pinv2 = p[..., None], pinv[..., None]
+        psi = self.base._sel("psi", rows).reshape(-1, n1, n2)[..., j2]
+        x = mont_mul(x, psi, p2, pinv2)
+        a = self._matmul_mod(self._sel(self.w1, rows), x, p2, pinv2)
+        a = mont_mul(a, self._sel(self.tw, rows)[..., j2], p2, pinv2)
+        # [R, k1, j2loc] -> [dest, R, j2loc, k1loc]: k1 block d to rank d
+        r = a.shape[0]
+        a = a.transpose(-1, -2).reshape(r, n2 // size, size, n1 // size)
+        a = all_to_all(a.permute(2, 0, 1, 3).contiguous(), group)
+        # [src, R, j2loc, k1loc] -> [R, j2 (src-major = global), k1loc]
+        a = a.permute(1, 0, 2, 3).reshape(r, n2, n1 // size)
+        return self._matmul_mod(self._sel(self.w2, rows), a, p2, pinv2)
 
 
 class FourStepBackend:

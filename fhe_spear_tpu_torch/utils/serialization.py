@@ -100,7 +100,12 @@ def save_eval_keys(path: str, ctx) -> None:
     capability.
 
     Format: uncompressed .npz -- keyswitch keys are uniform-random residue
-    tensors, incompressible."""
+    tensors, incompressible.  A context whose keys are limb-sharded holds
+    only its rank's rows and raises: save from an unsharded context."""
+    if ctx._key_shard is not None:
+        raise ValueError("this context holds one rank's rows of the eval "
+                         "keys (shard_eval_keys): save from an unsharded "
+                         "context")
     arrs = {
         "relin_b": _words(ctx.relin_key.b),
         "relin_a": _words(ctx.relin_key.a),
@@ -124,7 +129,9 @@ def load_eval_keys(path: str, ctx) -> None:
     SAME params: the context's own relinearization, Galois and identity
     keys are replaced (an sk-less server context then evaluates bitwise
     identically to the key owner's), and the key epoch is bumped, so that
-    an engine built before the load rebuilds its key stacks."""
+    an engine built before the load rebuilds its key stacks.  On a context
+    whose keys are limb-sharded (`shard_eval_keys`), each loaded key is
+    re-padded and cut to this rank's rows, as the context's own keys are."""
     from ..ckks.context import KeySwitchKey
 
     z = np.load(path)
@@ -135,8 +142,9 @@ def load_eval_keys(path: str, ctx) -> None:
     _check_order(bytes(z["order"]).decode(), ctx, "eval keys were")
 
     def key(prefix):
-        return KeySwitchKey(*(torch.as_tensor(z[f"{prefix}_{x}"].astype(
-            np.int64), device=ctx.device) for x in ("b", "a")))
+        return ctx._place_key(KeySwitchKey(*(torch.as_tensor(
+            z[f"{prefix}_{x}"].astype(np.int64), device=ctx.device)
+            for x in ("b", "a"))))
 
     ctx.relin_key = key("relin")
     ctx.galois_keys.clear()

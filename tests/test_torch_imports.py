@@ -41,7 +41,11 @@ def test_port_imports_no_jax_no_reference():
                 "bench_bootstrap", "bench_rag", "fhesim", "fhesim.simulator",
                 "fhesim.eval", "fhesim.calibrate", "fhesim.benchmark_speed",
                 "apps.data_prep", "models.naive_inference", "utils",
-                "utils.serialization", "utils.profiling"):
+                "utils.serialization", "utils.profiling",
+                "parallel.collectives", "parallel.sharded_bsgs",
+                "parallel.sharded_server", "parallel.sharded_fully_enc",
+                "parallel.limb_sharded", "parallel.block_pipeline",
+                "parallel.dryrun"):
         assert "fhe_spear_tpu_torch." + mod in names, mod
     code = (
         "import importlib, json, sys\n"
