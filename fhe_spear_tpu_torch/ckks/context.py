@@ -66,6 +66,7 @@ from ..core.modops import (
 from ..core.ntt import NttContext, require_device
 from ..core.primes import Prime, find_ntt_primes
 from ..parallel.ntt_fourstep import FourStepBackend
+from ..utils.profiling import span
 from .ciphertext import Ciphertext, Plaintext
 from .encoding import SlotEncoder
 
@@ -878,8 +879,9 @@ class CkksContext:
         """[..., l, N] Mont eval -> extended digits [..., d_l, T, N], plain,
         eval (d_l = l for single-limb digits, ceil(l/gsize) when dnum is
         set), on the target rows `_ks_targets(l)`."""
-        coeffs = self.ntt.intt_from_mont(c1, tuple(range(l)))
-        return self._extend_digits(coeffs, l, self._ks_targets(l))
+        with span("ckks.decompose"):
+            coeffs = self.ntt.intt_from_mont(c1, tuple(range(l)))
+            return self._extend_digits(coeffs, l, self._ks_targets(l))
 
     def _extend_digits(self, coeffs: torch.Tensor, l: int, tgt: tuple
                        ) -> torch.Tensor:
@@ -919,9 +921,10 @@ class CkksContext:
         kb/ka -> the switched pair [..., 2, l, N] (contraction, then the
         mod-down).  With sharded keys every rank contracts its own rows and
         the result is gathered: the same words on every rank."""
-        if self._key_shard is not None:
-            return self._key_shard.switch(D, kb, ka, l)
-        return self._mod_down(self._apply_ksk(D, kb, ka, l), l)
+        with span("ckks.keyswitch"):
+            if self._key_shard is not None:
+                return self._key_shard.switch(D, kb, ka, l)
+            return self._mod_down(self._apply_ksk(D, kb, ka, l), l)
 
     def _mod_down(self, ks: torch.Tensor, l: int) -> torch.Tensor:
         """[..., 2, l+K, N] Mont eval over Q_l*P -> [..., 2, l, N] Mont eval

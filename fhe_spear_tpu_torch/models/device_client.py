@@ -46,6 +46,7 @@ import torch
 from ..ckks.context import CkksContext
 from ..core.modops import add_mod, mont_mul
 from ..ops.bsgs import BsgsMatvec, bsgs_kernel
+from ..utils.profiling import span
 from .client_aided import _chunk_pairs, _generator, encrypt_on_device
 from .rwkv7 import RwkvModel, RwkvState, generate_token_plaintext, layer_norm
 
@@ -193,13 +194,14 @@ class DeviceTokenRunner:
         """complex64 slot rows [..., slots] -> int32 coefficients [..., N]
         at ctx.scale (canonical embedding, device FFT)."""
         n = self.ctx.n
-        vals = torch.zeros(z.shape[:-1] + (n,), dtype=torch.complex64,
-                           device=self.device)
-        vals[..., self._t_slot] = z
-        vals[..., self._t_conj] = torch.conj(z)
-        b = torch.fft.fft(vals, dim=-1) / n
-        coeffs = (b * self._zeta_inv).real * np.float32(self.ctx.scale)
-        return torch.round(coeffs).to(torch.int32)
+        with span("client.encode"):
+            vals = torch.zeros(z.shape[:-1] + (n,), dtype=torch.complex64,
+                               device=self.device)
+            vals[..., self._t_slot] = z
+            vals[..., self._t_conj] = torch.conj(z)
+            b = torch.fft.fft(vals, dim=-1) / n
+            coeffs = (b * self._zeta_inv).real * np.float32(self.ctx.scale)
+            return torch.round(coeffs).to(torch.int32)
 
     def _decode_dev(self, coeffs_f32: torch.Tensor) -> torch.Tensor:
         """float32 coefficient rows [..., N] (already divided by the output
@@ -212,7 +214,8 @@ class DeviceTokenRunner:
     def _encrypt_dev(self, m_i32: torch.Tensor, gen: torch.Generator
                      ) -> torch.Tensor:
         """int32 coefficients [..., N] -> ciphertexts [..., 2, l, N]."""
-        return encrypt_on_device(self.ctx, m_i32, gen, self.level)
+        with span("client.encrypt"):
+            return encrypt_on_device(self.ctx, m_i32, gen, self.level)
 
     def _decrypt_dev(self, out_ct: torch.Tensor) -> torch.Tensor:
         """[..., 2, l-1, N] -> complex64 message slot rows [..., slots]
@@ -221,13 +224,14 @@ class DeviceTokenRunner:
         ctx = self.ctx
         ntt = ctx.ntt
         p1, pinv1 = ntt.p[:1], ntt.pinv[:1]
-        v = add_mod(out_ct[..., 0, :1, :],
-                    mont_mul(out_ct[..., 1, :1, :], ctx.s_eval[:1], p1, pinv1),
-                    p1)
-        t = ntt.intt_from_mont(v, (0,))[..., 0, :]
-        centered = torch.where(t > self._q0 // 2, t - self._q0, t)
-        coeffs = centered.to(torch.float32) / np.float32(self._out_scale)
-        return self._decode_dev(coeffs)
+        with span("client.decrypt"):
+            v = add_mod(out_ct[..., 0, :1, :],
+                        mont_mul(out_ct[..., 1, :1, :], ctx.s_eval[:1], p1,
+                                 pinv1), p1)
+            t = ntt.intt_from_mont(v, (0,))[..., 0, :]
+            centered = torch.where(t > self._q0 // 2, t - self._q0, t)
+            coeffs = centered.to(torch.float32) / np.float32(self._out_scale)
+            return self._decode_dev(coeffs)
 
     # -- the token step -------------------------------------------------------
 
@@ -239,8 +243,11 @@ class DeviceTokenRunner:
         """Encrypt slot rows [S, b, slots] of S streams, run the server
         kernel stream by stream, decrypt -> [S, b', slots]."""
         c = self._encrypt_dev(self._encode_dev(slots_rows), gen)
-        out = torch.stack([kern(cs, pt) for cs in c])
-        return self._decrypt_dev(out) * np.float32(PRESCALE)
+        outs = []
+        for cs in c:
+            with span("server.bsgs"):
+                outs.append(kern(cs, pt))
+        return self._decrypt_dev(torch.stack(outs)) * np.float32(PRESCALE)
 
     def _block_body(self, bi, x, v_first, xpa, xpf, state, gen):
         """One block of the protocol for S streams -- all 4 encrypted round
@@ -267,70 +274,80 @@ class DeviceTokenRunner:
             m = torch.clamp(m, min=1e-9)
             return m.reshape((S,) + (1,) * (v.dim() - 1))
 
-        x_ln = ln(x, w["ln1_w"], w["ln1_b"])
-        xx = xpa - x_ln
-        mix = {nm: x_ln + xx * w["x_" + nm]
-               for nm in ("r", "k", "v", "g", "w", "a")}
+        # client.math spans each stretch of client math between the round
+        # trips, which open their own client.* and server.bsgs spans
+        with span("client.math"):
+            x_ln = ln(x, w["ln1_w"], w["ln1_b"])
+            xx = xpa - x_ln
+            mix = {nm: x_ln + xx * w["x_" + nm]
+                   for nm in ("r", "k", "v", "g", "w", "a")}
+            xs3 = torch.stack([mix["r"], mix["k"], mix["v"]], dim=1)
+            mag = torch.clamp(xs3.abs().amax(-1, keepdim=True), min=1e-9)
+            rows = self._tile((xs3 / mag).to(torch.complex64))   # [S, 3, .]
 
         # -- round trip 1: r, k, v projections ------------------------------
-        xs3 = torch.stack([mix["r"], mix["k"], mix["v"]], dim=1)  # [S, 3, d]
-        mag = torch.clamp(xs3.abs().amax(-1, keepdim=True), min=1e-9)
-        rows = self._tile((xs3 / mag).to(torch.complex64))
         rkv = self._project(self._kern_b, pt_rkv, rows, gen)
-        rkv = rkv.real[..., :d] * mag
-        r, k, v = rkv[:, 0], rkv[:, 1], rkv[:, 2]
 
         # -- client: WKV-7 recurrence --------------------------------------
-        w_vec = sig(w["w0"] + torch.tanh(mix["w"] @ w["w1"]) @ w["w2"])
-        decay = torch.exp(-math.exp(-0.5) * w_vec.reshape(S, h, hs))
-        a_h = sig(w["a0"] + (mix["a"] @ w["a1"]) @ w["a2"]).reshape(S, h, hs)
-        kk = (k * w["k_k"]).reshape(S, h, hs)
-        kk = kk / (torch.linalg.norm(kk, dim=-1, keepdim=True) + 1e-12)
-        k_h = k.reshape(S, h, hs) * (1.0 + (a_h - 1.0)
-                                     * w["k_a"].reshape(h, hs))
-        if bi == 0:
-            v_first = v
-        else:
-            v_gate = sig(w["v0"] + (mix["v"] @ w["v1"]) @ w["v2"])
-            v = v + (v_first - v) * v_gate
-        v_h = v.reshape(S, h, hs)
-        rh = r.reshape(S, h, hs)
-        sa = torch.einsum("shij,shj->shi", state, -kk)
-        new_state = (state * decay[..., None, :]
-                     + sa[..., :, None] * (kk * a_h)[..., None, :]
-                     + v_h[..., :, None] * k_h[..., None, :])
-        g_ = torch.einsum("shij,shj->shi", new_state, rh)
-        g_ = (g_ - g_.mean(-1, keepdim=True)) / torch.sqrt(
-            g_.var(-1, correction=0, keepdim=True) + 64e-5)
-        wkv = g_.reshape(S, h * hs) * w["ln_x_w"] + w["ln_x_b"]
-        bonus = (rh * k_h * w["r_k"]).sum(-1, keepdim=True) * v_h
-        wkv = wkv + bonus.reshape(S, h * hs)
-        gated = wkv * (sig(mix["g"] @ w["g1"]) @ w["g2"])
+        with span("client.math"):
+            rkv = rkv.real[..., :d] * mag
+            r, k, v = rkv[:, 0], rkv[:, 1], rkv[:, 2]
+            w_vec = sig(w["w0"] + torch.tanh(mix["w"] @ w["w1"]) @ w["w2"])
+            decay = torch.exp(-math.exp(-0.5) * w_vec.reshape(S, h, hs))
+            a_h = sig(w["a0"] + (mix["a"] @ w["a1"]) @ w["a2"]
+                      ).reshape(S, h, hs)
+            kk = (k * w["k_k"]).reshape(S, h, hs)
+            kk = kk / (torch.linalg.norm(kk, dim=-1, keepdim=True) + 1e-12)
+            k_h = k.reshape(S, h, hs) * (1.0 + (a_h - 1.0)
+                                         * w["k_a"].reshape(h, hs))
+            if bi == 0:
+                v_first = v
+            else:
+                v_gate = sig(w["v0"] + (mix["v"] @ w["v1"]) @ w["v2"])
+                v = v + (v_first - v) * v_gate
+            v_h = v.reshape(S, h, hs)
+            rh = r.reshape(S, h, hs)
+            sa = torch.einsum("shij,shj->shi", state, -kk)
+            new_state = (state * decay[..., None, :]
+                         + sa[..., :, None] * (kk * a_h)[..., None, :]
+                         + v_h[..., :, None] * k_h[..., None, :])
+            g_ = torch.einsum("shij,shj->shi", new_state, rh)
+            g_ = (g_ - g_.mean(-1, keepdim=True)) / torch.sqrt(
+                g_.var(-1, correction=0, keepdim=True) + 64e-5)
+            wkv = g_.reshape(S, h * hs) * w["ln_x_w"] + w["ln_x_b"]
+            bonus = (rh * k_h * w["r_k"]).sum(-1, keepdim=True) * v_h
+            wkv = wkv + bonus.reshape(S, h * hs)
+            gated = wkv * (sig(mix["g"] @ w["g1"]) @ w["g2"])
+            mag_g = amax(gated)                               # [S, 1]
+            rows = self._tile((gated / mag_g).to(torch.complex64))[:, None]
 
         # -- round trip 2: W_o ---------------------------------------------
-        mag_g = amax(gated)                                   # [S, 1]
-        rows = self._tile((gated / mag_g).to(torch.complex64))[:, None]
         att = self._project(self._kern_b, pt_o[None], rows, gen)
-        x = x + att.real[:, 0, :d] * mag_g
+
+        with span("client.math"):
+            x = x + att.real[:, 0, :d] * mag_g
+            x_ffn_ln = ln(x, w["ln2_w"], w["ln2_b"])
+            xk_ffn = x_ffn_ln + (xpf - x_ffn_ln) * w["x_k_ffn"]
+            mag_fk = amax(xk_ffn)
+            rows = self._tile((xk_ffn / mag_fk).to(torch.complex64))[:, None]
 
         # -- round trip 3: FFN key (complex chunk pairs) -------------------
-        x_ffn_ln = ln(x, w["ln2_w"], w["ln2_b"])
-        xk_ffn = x_ffn_ln + (xpf - x_ffn_ln) * w["x_k_ffn"]
-        mag_fk = amax(xk_ffn)
-        rows = self._tile((xk_ffn / mag_fk).to(torch.complex64))[:, None]
         z = self._project(lambda c, p_: self._kern_s(c[0], p_), pt_fk, rows,
                           gen)                                # [S, P, slots]
-        z = z[..., :d] * mag_fk[..., None]
+
         # client: unpack pairs -> relu^2 -> repack complex pairs
-        fk_re = torch.clamp(z.real, min=0.0) ** 2            # [S, P, d]
-        fk_im = torch.clamp(z.imag, min=0.0) ** 2
-        zp = torch.complex(fk_re, fk_im)
-        mag_v = torch.maximum(amax(fk_re), amax(fk_im))      # [S, 1, 1]
-        rows = self._tile((zp / mag_v).to(torch.complex64))
+        with span("client.math"):
+            z = z[..., :d] * mag_fk[..., None]
+            fk_re = torch.clamp(z.real, min=0.0) ** 2        # [S, P, d]
+            fk_im = torch.clamp(z.imag, min=0.0) ** 2
+            zp = torch.complex(fk_re, fk_im)
+            mag_v = torch.maximum(amax(fk_re), amax(fk_im))  # [S, 1, 1]
+            rows = self._tile((zp / mag_v).to(torch.complex64))
 
         # -- round trip 4: FFN value (conjugate trick) ---------------------
         zv = self._project(self._kern_b, pt_fv, rows, gen)
-        x = x + zv.real[..., :d].sum(dim=1) * mag_v[:, 0]
+        with span("client.math"):
+            x = x + zv.real[..., :d].sum(dim=1) * mag_v[:, 0]
         return x, v_first, x_ln, x_ffn_ln, new_state
 
     def _token(self, token_ids, xpa, xpf, states, seed):
@@ -338,10 +355,11 @@ class DeviceTokenRunner:
         states [S, nb, h, hs, hs] (float32 device tensors)."""
         m = self.model
         assert len(self.blocks) == len(m.blocks), "a token needs every block"
-        x = torch.as_tensor(np.stack([
-            layer_norm(np.asarray(m.emb[t], dtype=np.float64), m.ln0_w,
-                       m.ln0_b) for t in token_ids]).astype(np.float32),
-            device=self.device)
+        with span("token.embed"):
+            x = torch.as_tensor(np.stack([
+                layer_norm(np.asarray(m.emb[t], dtype=np.float64), m.ln0_w,
+                           m.ln0_b) for t in token_ids]).astype(np.float32),
+                device=self.device)
         gen = _generator(self.device, seed)
         v_first = None
         outs = []
@@ -349,30 +367,35 @@ class DeviceTokenRunner:
             x, v_first, x_ln, x_ffn_ln, st = self._block_body(
                 bi, x, v_first, xpa[:, bi], xpf[:, bi], states[:, bi], gen)
             outs.append((x_ln, x_ffn_ln, st))
-        x_out = x.double().cpu().numpy()
-        xpa_n, xpf_n, st_n = (torch.stack(t, dim=1).double().cpu().numpy()
-                              for t in zip(*outs))
-        logits = layer_norm(x_out, m.ln_out_w, m.ln_out_b) @ m.head_w
-        news = [RwkvState(x_prev_att=list(xpa_n[s]),
-                          x_prev_ffn=list(xpf_n[s]), wkv=list(st_n[s]))
-                for s in range(len(token_ids))]
+        with span("token.readback"):
+            x_out = x.double().cpu().numpy()
+            xpa_n, xpf_n, st_n = (torch.stack(t, dim=1).double().cpu()
+                                  .numpy() for t in zip(*outs))
+        with span("token.head"):
+            logits = layer_norm(x_out, m.ln_out_w, m.ln_out_b) @ m.head_w
+        with span("token.state_out"):
+            news = [RwkvState(x_prev_att=list(xpa_n[s]),
+                              x_prev_ffn=list(xpf_n[s]), wkv=list(st_n[s]))
+                    for s in range(len(token_ids))]
         return logits, news
 
     def _state_tensors(self, states):
         f32 = lambda arrs: torch.as_tensor(
             np.stack([np.stack(a) for a in arrs]).astype(np.float32),
             device=self.device)
-        return (f32([s.x_prev_att for s in states]),
-                f32([s.x_prev_ffn for s in states]),
-                f32([s.wkv for s in states]))
+        with span("token.state_in"):
+            return (f32([s.x_prev_att for s in states]),
+                    f32([s.x_prev_ffn for s in states]),
+                    f32([s.wkv for s in states]))
 
     # -- public API -----------------------------------------------------------
 
     def generate_token(self, token_id: int, state: RwkvState):
         """One FHE token step.  Returns (logits [vocab], new_state)."""
         self._seed += 1
-        logits, news = self._token([token_id], *self._state_tensors([state]),
-                                   self._seed)
+        with span("token"):
+            logits, news = self._token(
+                [token_id], *self._state_tensors([state]), self._seed)
         return logits[0], news[0]
 
     def generate_tokens_streams(self, token_ids, states):
@@ -381,8 +404,9 @@ class DeviceTokenRunner:
         ciphertexts are encrypted with their own randomness).  Returns
         (logits [S, vocab], new_states)."""
         self._seed += 1
-        return self._token(list(token_ids), *self._state_tensors(states),
-                           self._seed)
+        with span("token"):
+            return self._token(list(token_ids), *self._state_tensors(states),
+                               self._seed)
 
 
 def run_generation_device(ctx, model, seed_tokens, num_tokens,

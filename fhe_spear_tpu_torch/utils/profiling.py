@@ -1,6 +1,15 @@
-"""Tracing / profiling utilities: named wall-clock spans (`Phases`) and a
-`torch.profiler` trace around a region (`trace`).  Counterpart of
-`fhe_spear_tpu/utils/profiling.py`, whose trace is a jax.profiler one."""
+"""Tracing / profiling utilities: the program's spans (`span`), named
+wall-clock totals (`Phases`) and a `torch.profiler` trace around a region
+(`trace`).  Counterpart of `fhe_spear_tpu/utils/profiling.py`, whose trace
+is a jax.profiler one.
+
+A span is always in the code and records only while a torch profiler
+runs: it is then a host operator (`cpu_op`) of the profiler's trace,
+under its name, on the host clock of the trace's CUDA launches.  It is made
+with `_RecordFunctionFast`, not `torch.profiler.record_function`: the
+latter records a user annotation, which the profiler mirrors onto the
+device's timeline as a device event, so a span would read as device work.
+"""
 
 from __future__ import annotations
 
@@ -10,17 +19,25 @@ import time
 from collections import defaultdict
 from pathlib import Path
 
-__all__ = ["Phases", "trace", "DEFAULT_TRACE_DIR"]
+from torch._C._profiler import _RecordFunctionFast
+
+__all__ = ["span", "Phases", "trace", "DEFAULT_TRACE_DIR"]
 
 # inside the checkout's gitignored build directory
 DEFAULT_TRACE_DIR = str(Path(__file__).resolve().parents[2] / "build"
                         / "fhe_spear_trace")
 
 
+def span(name: str):
+    """Context manager: the region as a host operator named `name` in a
+    running torch profiler's trace; nothing (a few hundred ns) otherwise."""
+    return _RecordFunctionFast(name)
+
+
 class Phases:
     """Accumulates named wall-clock spans (per-block server/client timing).
     Host clock: on the card, end a span's work with a synchronise to count
-    the device's share."""
+    the device's share.  Each span is also a `span` of the same name."""
 
     def __init__(self):
         self.totals = defaultdict(float)
@@ -30,7 +47,8 @@ class Phases:
     def span(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1

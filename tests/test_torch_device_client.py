@@ -16,12 +16,17 @@ tests/test_device_client.py model (d=32, f=128, head 16, vocab 64, n=256).
     `generate_tokens_streams` matches its own twin (the reference test's
     assertions).  The device randomness is a torch.Generator, not
     threefry, so tokens are compared, not ciphertext words.
+  * The token step's spans (`utils.profiling.span`) under a CPU profiler:
+    their counts a step, the keyswitch inside every server matvec, no
+    client span inside a server one or the other way round, and logits
+    bitwise equal with the profiler on and off.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from fhe_spear_tpu.ckks import CkksContext as RefContext
 from fhe_spear_tpu.ckks import CkksParams as RefParams
@@ -111,3 +116,56 @@ def test_device_client_streams():
         assert corr > 0.999, (s, corr)
         np.testing.assert_allclose(np.stack(news[s].wkv),
                                    np.stack(sref.wkv), atol=1e-3)
+
+
+_SPANS = ("token", "token.state_in", "token.embed", "client.math",
+          "client.encode", "client.encrypt", "server.bsgs", "client.decrypt",
+          "ckks.decompose", "ckks.keyswitch", "token.readback", "token.head",
+          "token.state_out")
+
+
+def test_device_client_spans():
+    """One profiled `generate_tokens_streams` step of 2 streams over 2
+    blocks: each span's count, the nesting, and the same logits as the
+    unprofiled step from the same seed."""
+    nb, toks = 2, [3, 17]
+    model = make_random_model(d=32, f=128, n_blocks=nb, head_size=16,
+                              vocab=64, seed=10)
+    ctx = _port_ctx()
+    runner = port_dc.DeviceTokenRunner(ctx, model, level=ctx.L)
+    states = [model.zero_state() for _ in toks]
+    seed = runner._seed
+    want, _ = runner.generate_tokens_streams(toks, states)
+    runner._seed = seed
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got, _ = runner.generate_tokens_streams(toks, states)
+    np.testing.assert_array_equal(got, want)
+
+    ev = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+          for e in prof.profiler.kineto_results.events()
+          if e.name() in _SPANS and e.activity_type() == "cpu_op"]
+    count = {n: sum(1 for *_, m in ev if m == n) for n in _SPANS}
+    S = len(toks)
+    assert count == {"token": 1, "token.state_in": 1, "token.embed": 1,
+                     "client.math": 5 * nb, "client.encode": 4 * nb,
+                     "client.encrypt": 4 * nb, "server.bsgs": 4 * nb * S,
+                     "client.decrypt": 4 * nb,
+                     "ckks.decompose": count["ckks.decompose"],
+                     "ckks.keyswitch": count["ckks.keyswitch"],
+                     "token.readback": 1, "token.head": 1,
+                     "token.state_out": 1}
+
+    def inside(outer, prefix):
+        return [m for s, e, m in ev
+                if m.startswith(prefix) and outer[0] <= s and e <= outer[1]]
+
+    (tok,) = [x for x in ev if x[2] == "token"]
+    assert len(inside(tok, "")) == len(ev)
+    for x in ev:
+        if x[2] == "server.bsgs":
+            assert "ckks.decompose" in inside(x, "ckks.")
+            assert "ckks.keyswitch" in inside(x, "ckks.")
+            assert inside(x, "client.") == []
+        elif x[2].startswith("client."):
+            assert inside(x, "server.") == [] and inside(x, "ckks.") == []
+            assert inside(x, "client.") == [x[2]]
