@@ -27,11 +27,14 @@ Phases (each failure raises, and the script exits non-zero):
      with i32 staging (depth cut to 2 blocks; 2 tokens, the first a
      warm-up), then one token of the explicit transport on 1 block;
   5. device client, stockham: `run_generation_device` at the same widths
-     and depth (2 tokens); K1/K2 launches must rise;
-  6. device client, mxu: the same run on a four-step ("mxu") context;
+     and depth (3 tokens: the server projections run eagerly, are
+     captured as CUDA graphs, then replay; the replayed token must count
+     the capturing token's launches by shape); K1/K2 launches must rise;
+  6. device client, mxu: the same 3 tokens on a four-step ("mxu") context;
      fourstep_fwd/fourstep_inv launches must rise and K1/K2 stay at 0;
-  7. streams: `generate_tokens_streams` with 4 streams on 1 block, and
-     `run_generation_batched` with 2 streams on 1 block, 1 token.
+  7. streams: `generate_tokens_streams` with 4 streams on 1 block, 3
+     steps (the third replays, as in 5), and `run_generation_batched`
+     with 2 streams on 1 block, 1 token.
   Every token must match its plaintext twin with logit correlation
   >= 0.999 (0.9999 on the classic path), every stream its own twin;
   8. retrieval: column-packed CT-CT scores of 50k seeded unit vectors (and
@@ -147,6 +150,9 @@ D, F, N, L, K, LEVEL = 2048, 8192, 8192, 3, 1, 3
 HEAD_SIZE = 64
 BLOCKS = 2             # depth cut from the model's 24 to fit the time limit
 SEED_TOKENS = [5, 11, 2]
+# the device client's tokens: the first runs its projections eagerly, the
+# second captures them as CUDA graphs, the third replays them
+DEVICE_TOKENS = 3
 CORR_DEVICE = 0.999    # the bar of tests/test_device_client.py
 CORR_CLASSIC = 0.9999  # the bar of tests/test_client_aided.py
 PREENC_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke_preenc"
@@ -566,21 +572,57 @@ def _reset_counts():
     fourstep_cuda.reset_counts()
 
 
+def _graphs_since(before):
+    from fhe_spear_tpu_torch.utils.profiling import GRAPHS
+
+    return {k: n - before[k] for k, n in GRAPHS.items()}
+
+
+def _check_replay(tag, hists, graphs):
+    """The projections' CUDA graphs (`ops.graphed`): the last of the
+    tokens `hists`/`graphs` (each token's launches by shape and GRAPHS
+    deltas) replayed every projection the token before captured, ran
+    none eagerly, and counts the launches the capturing token counted."""
+    if len(graphs) < 3:
+        raise AssertionError(f"{tag}: {len(graphs)} tokens, a replay "
+                             "needs 3")
+    cap, rep = graphs[-2], graphs[-1]
+    if not (cap["captures"] > 0 and rep == {"captures": 0, "eager": 0,
+                                            "replays": cap["captures"]}):
+        raise AssertionError(f"{tag}: graphs by token {graphs}, the last "
+                             "token must replay what the one before "
+                             "captured")
+    if hists[-1] != hists[-2]:
+        raise AssertionError(f"{tag}: a replayed token's launches by shape "
+                             f"{hists[-1]} differ from the capturing "
+                             f"token's {hists[-2]}")
+    log(f"  [{tag}] graphs by token: {graphs}; the replayed token's "
+        "launches by shape equal the capturing token's")
+
+
 def _drive(tag, fn, corr_bar, must_launch=(), must_not_launch=(),
-           hists=None):
+           hists=None, graphed=False):
     """Run one generation path with the counts set to 0 just before it and
     read just after; check every token against its twin and the counts.
     Prints each token's launches by shape (most frequent first) and, with
-    `hists`, keeps the last token's there."""
+    `hists`, keeps the last token's there.  `graphed`: the path's server
+    projections are CUDA graphs, and its last token must replay them
+    (`_check_replay`)."""
     import torch
 
-    per_token, per_token_shapes = [], []
+    from fhe_spear_tpu_torch.utils.profiling import GRAPHS
+
+    per_token, per_token_shapes, per_token_graphs = [], [], []
+    graphs_before = dict(GRAPHS)
 
     def on_log(msg):
+        nonlocal graphs_before
         log(f"  [{tag}] {msg}")
         if msg.startswith("token "):
             per_token.append(_counts())
             per_token_shapes.append(_shape_counts())
+            per_token_graphs.append(_graphs_since(graphs_before))
+            graphs_before = dict(GRAPHS)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -591,7 +633,7 @@ def _drive(tag, fn, corr_bar, must_launch=(), must_not_launch=(),
     counts = _counts()
     prev = dict.fromkeys(KERNELS, 0)
     prev_shapes = {k: {} for k in KERNELS}
-    token_hist = None
+    token_hist, token_hists = None, []
     for i, (c, sh) in enumerate(zip(per_token, per_token_shapes)):
         log(f"  [{tag}] launches token {i}: "
             + " ".join(f"{k}={c[k] - prev[k]}" for k in KERNELS))
@@ -604,8 +646,11 @@ def _drive(tag, fn, corr_bar, must_launch=(), must_not_launch=(),
                     f"{list(s)} x{n}" for s, n in sorted(
                         token_hist[k].items(), key=lambda kv: -kv[1])))
         prev, prev_shapes = c, sh
+        token_hists.append(token_hist)
     if hists is not None:
         hists[tag] = token_hist
+    if graphed:
+        _check_replay(tag, token_hists, per_token_graphs)
     log(f"  [{tag}] total {time.perf_counter() - t0:.2f}s, peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches {counts}")
@@ -662,6 +707,7 @@ def phase_paths(hists):
         run_generation_device
     from fhe_spear_tpu_torch.models.rwkv7 import generate_token_plaintext, \
         make_random_model
+    from fhe_spear_tpu_torch.utils.profiling import GRAPHS
 
     log(f"paths: client-aided RWKV-7 D={D} F={F} N={N} L={L} K={K} "
         f"level {LEVEL}; depth cut to {BLOCKS} of the model's 24 blocks")
@@ -686,10 +732,11 @@ def phase_paths(hists):
 
     counts["device_stockham"] = _drive(
         "device client stockham", lambda lg: run_generation_device(
-            ctx, model, seed_tokens=SEED_TOKENS, num_tokens=2, level=LEVEL,
-            cache_dir=str(PREENC_CACHE), log_fn=lg),
+            ctx, model, seed_tokens=SEED_TOKENS, num_tokens=DEVICE_TOKENS,
+            level=LEVEL, cache_dir=str(PREENC_CACHE), log_fn=lg),
         CORR_DEVICE, must_launch=("ntt_fwd", "ntt_inv"),
-        must_not_launch=("fourstep_fwd", "fourstep_inv"), hists=hists)
+        must_not_launch=("fourstep_fwd", "fourstep_inv"), hists=hists,
+        graphed=True)
 
     # streams on the stockham context, 1 block
     torch.cuda.reset_peak_memory_stats()
@@ -699,20 +746,28 @@ def phase_paths(hists):
     log(f"  [device streams] runner init {time.perf_counter() - t0:.2f}s")
     _reset_counts()
     toks = [3, 17, 42, 99]
-    t0 = time.perf_counter()
-    logits, news = runner.generate_tokens_streams(
-        toks, [one.zero_state() for _ in toks])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    corrs = []
-    for s, t in enumerate(toks):
-        lref, _ = generate_token_plaintext(one, t, one.zero_state())
-        corrs.append(float(np.corrcoef(logits[s], lref)[0, 1]))
-        if int(np.argmax(logits[s])) != int(np.argmax(lref)) \
-                or not corrs[-1] >= CORR_DEVICE:
-            raise AssertionError(f"device streams: stream {s} off its twin "
-                                 f"(corr {corrs[-1]})")
-    log(f"  [device streams, 4 on 1 block] step {dt:.3f}s, every stream "
+    states = [one.zero_state() for _ in toks]
+    refs = [one.zero_state() for _ in toks]
+    step_hists, step_graphs, dts, corrs = [], [], [], []
+    for step in range(DEVICE_TOKENS):     # eager, capture, replay
+        shapes, graphs = _shape_counts(), dict(GRAPHS)
+        t0 = time.perf_counter()
+        logits, states = runner.generate_tokens_streams(toks, states)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        step_graphs.append(_graphs_since(graphs))
+        step_hists.append(_hist_since(shapes))
+        for s, t in enumerate(toks):
+            lref, refs[s] = generate_token_plaintext(one, t, refs[s])
+            corrs.append(float(np.corrcoef(logits[s], lref)[0, 1]))
+            if int(np.argmax(logits[s])) != int(np.argmax(lref)) \
+                    or not corrs[-1] >= CORR_DEVICE:
+                raise AssertionError(f"device streams: stream {s} off its "
+                                     f"twin at step {step} (corr "
+                                     f"{corrs[-1]})")
+    _check_replay("device streams", step_hists, step_graphs)
+    log(f"  [device streams, 4 on 1 block] steps "
+        + ", ".join(f"{dt:.3f}s" for dt in dts) + ", every stream "
         f"matches; min corr {min(corrs):.6f}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{_counts()}")
@@ -735,10 +790,10 @@ def phase_paths(hists):
     ctx_mxu = _context("mxu")
     counts["device_mxu"] = _drive(
         "device client mxu", lambda lg: run_generation_device(
-            ctx_mxu, model, seed_tokens=SEED_TOKENS, num_tokens=2,
+            ctx_mxu, model, seed_tokens=SEED_TOKENS, num_tokens=DEVICE_TOKENS,
             level=LEVEL, cache_dir=str(PREENC_CACHE), log_fn=lg),
         CORR_DEVICE, must_launch=("fourstep_fwd", "fourstep_inv"),
-        must_not_launch=("ntt_fwd", "ntt_inv"), hists=hists)
+        must_not_launch=("ntt_fwd", "ntt_inv"), hists=hists, graphed=True)
     return counts
 
 

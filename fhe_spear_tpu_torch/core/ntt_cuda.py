@@ -69,6 +69,14 @@ class KernelStats:
         self.launches += 1
         self.by_shape[(B, R, n)] += 1
 
+    def add(self, by_shape, times: int = 1) -> None:
+        """Count the launches `by_shape` ({(B, R, N): launches}) `times`
+        times over: the launches of a CUDA graph's replays, which launch
+        nothing from Python (`ops.graphed`)."""
+        for shape, n in by_shape.items():
+            self.launches += n * times
+            self.by_shape[shape] += n * times
+
     def reset(self) -> None:
         self.launches = 0
         self.by_shape = collections.Counter()

@@ -63,8 +63,7 @@ def _uniform_mod(ctx: CkksContext, gen: torch.Generator, shape: tuple,
     (hi * 2^32 + lo) mod q = hi * (2^32 mod q) + lo  (mod q)."""
     p, pinv = ctx._p(l)
     mu = ctx.mu[:l]
-    t32r = ctx._tensor([(1 << 32) % int(ctx.q_np[i]) * ctx.primes[i].mont_r
-                        % int(ctx.q_np[i]) for i in range(l)])[:, None]
+    t32r = ctx.t32_mont[:l]
     draw = lambda: torch.randint(0, 1 << 32, shape + (l, ctx.n),
                                  generator=gen, dtype=torch.int64,
                                  device=ctx.device)

@@ -46,6 +46,7 @@ import torch
 from ..ckks.context import CkksContext
 from ..core.modops import add_mod, mont_mul
 from ..ops.bsgs import BsgsMatvec, bsgs_kernel
+from ..ops.graphed import ProjectionGraphs
 from ..utils.profiling import span
 from .client_aided import _chunk_pairs, _generator, encrypt_on_device
 from .rwkv7 import RwkvModel, RwkvState, generate_token_plaintext, layer_norm
@@ -89,6 +90,7 @@ class DeviceTokenRunner:
         self._seed = int(ctx.rng.randint(0, 1 << 62, dtype=np.int64))
         self._kern_b = bsgs_kernel(self.eng, level, "batched", i32=True)
         self._kern_s = bsgs_kernel(self.eng, level, "shared", i32=True)
+        self._graphs = ProjectionGraphs(ctx)
 
     # -- server-side pre-encoding (diagonals / PRESCALE, int32) -------------
 
@@ -239,15 +241,24 @@ class DeviceTokenRunner:
         reps = self.ctx.slots // x.shape[-1]
         return x.repeat((1,) * (x.dim() - 1) + (reps,))
 
-    def _project(self, kern, pt, slots_rows, gen):
-        """Encrypt slot rows [S, b, slots] of S streams, run the server
-        kernel stream by stream, decrypt -> [S, b', slots]."""
+    def _server_kern(self, name, j):
+        """kern(cs) of projection `name` ("rkv", "o", "fk", "fv") at block
+        row j: the server's BSGS kernel on one stream's ciphertexts cs
+        [b, 2, l, N] (b = 3, 1, 1, len(key_pairs))."""
+        pt = self.pt[name][j]
+        if name == "fk":                  # one input against the pairs
+            return lambda cs: self._kern_s(cs[0], pt)
+        if name == "o":
+            pt = pt[None]
+        return lambda cs: self._kern_b(cs, pt)
+
+    def _project(self, name, j, slots_rows, gen):
+        """Encrypt slot rows [S, b, slots] of S streams, run projection
+        `name` of block row j on every stream (one CUDA graph replay for
+        all S where `ops.graphed` engages), decrypt -> [S, b', slots]."""
         c = self._encrypt_dev(self._encode_dev(slots_rows), gen)
-        outs = []
-        for cs in c:
-            with span("server.bsgs"):
-                outs.append(kern(cs, pt))
-        return self._decrypt_dev(torch.stack(outs)) * np.float32(PRESCALE)
+        out = self._graphs(name, j, self._server_kern(name, j), c)
+        return self._decrypt_dev(out) * np.float32(PRESCALE)
 
     def _block_body(self, bi, x, v_first, xpa, xpf, state, gen):
         """One block of the protocol for S streams -- all 4 encrypted round
@@ -260,8 +271,6 @@ class DeviceTokenRunner:
         S = x.shape[0]
         j = bi - self.blocks.start                 # row of the staged span
         w = {k: t[j] for k, t in self.cw.items()}
-        pt_rkv, pt_o, pt_fk, pt_fv = (self.pt[k][j]
-                                      for k in ("rkv", "o", "fk", "fv"))
         sig = torch.sigmoid
 
         def ln(v, wt, bb, eps=1e-5):
@@ -286,7 +295,7 @@ class DeviceTokenRunner:
             rows = self._tile((xs3 / mag).to(torch.complex64))   # [S, 3, .]
 
         # -- round trip 1: r, k, v projections ------------------------------
-        rkv = self._project(self._kern_b, pt_rkv, rows, gen)
+        rkv = self._project("rkv", j, rows, gen)
 
         # -- client: WKV-7 recurrence --------------------------------------
         with span("client.math"):
@@ -322,7 +331,7 @@ class DeviceTokenRunner:
             rows = self._tile((gated / mag_g).to(torch.complex64))[:, None]
 
         # -- round trip 2: W_o ---------------------------------------------
-        att = self._project(self._kern_b, pt_o[None], rows, gen)
+        att = self._project("o", j, rows, gen)
 
         with span("client.math"):
             x = x + att.real[:, 0, :d] * mag_g
@@ -332,8 +341,7 @@ class DeviceTokenRunner:
             rows = self._tile((xk_ffn / mag_fk).to(torch.complex64))[:, None]
 
         # -- round trip 3: FFN key (complex chunk pairs) -------------------
-        z = self._project(lambda c, p_: self._kern_s(c[0], p_), pt_fk, rows,
-                          gen)                                # [S, P, slots]
+        z = self._project("fk", j, rows, gen)              # [S, P, slots]
 
         # client: unpack pairs -> relu^2 -> repack complex pairs
         with span("client.math"):
@@ -345,7 +353,7 @@ class DeviceTokenRunner:
             rows = self._tile((zp / mag_v).to(torch.complex64))
 
         # -- round trip 4: FFN value (conjugate trick) ---------------------
-        zv = self._project(self._kern_b, pt_fv, rows, gen)
+        zv = self._project("fv", j, rows, gen)
         with span("client.math"):
             x = x + zv.real[..., :d].sum(dim=1) * mag_v[:, 0]
         return x, v_first, x_ln, x_ffn_ln, new_state

@@ -10,8 +10,9 @@ or one column batch of the naive ablation's.
 N=8192, L=3, K=1, level 3) on the chosen transport -- classic:
 `FheRwkvClient` on the fused transport with i32 staging; device: the
 device-resident client `DeviceTokenRunner` -- and NTT backend; one warm-up
-token, then one steady token is traced.  (An encrypted-RAG token is the
-classic token at --blocks 1.)
+token (two on the device transport: its second captures the projections'
+CUDA graphs, `ops.graphed`), then one steady token is traced.  (An
+encrypted-RAG token is the classic token at --blocks 1.)
 --path retrieval: column-packed CT-CT scoring of one query against 50k
 seeded unit vectors (dim 64, Lorentz, N=8192), after one warm-up query.
 --path fullenc: one fully-encrypted FFN block (D=2048, F=8192, N=8192,
@@ -61,7 +62,12 @@ def _token_window(args):
     def step(tok):
         _, state["s"], timings = token(tok, state["s"])
         return timings
-    return (lambda: step(11)), (lambda: step(2))
+
+    def warm():
+        step(11)
+        if args.transport == "device":
+            step(7)
+    return warm, (lambda: step(2))
 
 
 def _retrieval_window(args):

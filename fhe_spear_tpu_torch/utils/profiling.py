@@ -9,6 +9,9 @@ under its name, on the host clock of the trace's CUDA launches.  It is made
 with `_RecordFunctionFast`, not `torch.profiler.record_function`: the
 latter records a user annotation, which the profiler mirrors onto the
 device's timeline as a device event, so a span would read as device work.
+
+`GRAPHS` counts how the server's projections ran (`ops.graphed`): CUDA
+graphs captured and replayed, and calls run eagerly.
 """
 
 from __future__ import annotations
@@ -21,11 +24,18 @@ from pathlib import Path
 
 from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["span", "Phases", "trace", "DEFAULT_TRACE_DIR"]
+__all__ = ["span", "Phases", "trace", "GRAPHS", "DEFAULT_TRACE_DIR"]
 
 # inside the checkout's gitignored build directory
 DEFAULT_TRACE_DIR = str(Path(__file__).resolve().parents[2] / "build"
                         / "fhe_spear_trace")
+
+
+# a projection's first call runs eagerly (and fills the caches a capture
+# needs), its second is captured, every later one replays; calls that
+# cannot be graphed (a CPU context, sharded keys) run eagerly each time;
+# zero it with GRAPHS.update(dict.fromkeys(GRAPHS, 0))
+GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
 
 
 def span(name: str):

@@ -20,7 +20,12 @@ tests/test_device_client.py model (d=32, f=128, head 16, vocab 64, n=256).
     their counts a step, the keyswitch inside every server matvec, no
     client span inside a server one or the other way round, and logits
     bitwise equal with the profiler on and off.
+  * The projections' CUDA graphs (`ops.graphed`) off the card: a CPU
+    context runs every call eagerly, the counter replay helper, the graph
+    key.  tests/test_torch_device_graphs.py holds the graphs on the card.
 """
+
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +39,12 @@ from fhe_spear_tpu.models import device_client as ref_dc
 from fhe_spear_tpu.models import rwkv7 as ref_rwkv
 from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
 from fhe_spear_tpu_torch.convert import model_from_reference
+from fhe_spear_tpu_torch.core.ntt_cuda import KernelStats
 from fhe_spear_tpu_torch.models import device_client as port_dc
 from fhe_spear_tpu_torch.models.rwkv7 import generate_token_plaintext, \
     make_random_model
+from fhe_spear_tpu_torch.ops import graphed
+from fhe_spear_tpu_torch.utils.profiling import GRAPHS
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -169,3 +177,76 @@ def test_device_client_spans():
         elif x[2].startswith("client."):
             assert inside(x, "server.") == [] and inside(x, "ckks.") == []
             assert inside(x, "client.") == [x[2]]
+
+
+def _stream_cts(ctx, S, b, level, seed):
+    """Random canonical residues standing for S streams' ciphertexts
+    [S, b, 2, l, N] (the server kernels take any residues)."""
+    g = torch.Generator().manual_seed(seed)
+    p = ctx.ntt.p[:level].cpu()                               # [l, 1]
+    x = torch.randint(0, 1 << 62, (S, b, 2, level, ctx.n), generator=g)
+    return (x % p).to(ctx.device)
+
+
+def test_cpu_projections_run_eager():
+    """A CPU context never graphs: every projection call runs the
+    per-stream loop (its words those of calling the kernel stream by
+    stream) and moves only GRAPHS["eager"]."""
+    model = make_random_model(d=32, f=128, n_blocks=2, head_size=16,
+                              vocab=64, seed=10)
+    ctx = _port_ctx()
+    runner = port_dc.DeviceTokenRunner(ctx, model, level=ctx.L)
+    assert not runner._graphs.engaged
+    GRAPHS.update(dict.fromkeys(GRAPHS, 0))
+    calls = 0
+    for name, b in (("rkv", 3), ("o", 1), ("fk", 1),
+                    ("fv", len(runner.key_pairs))):
+        kern = runner._server_kern(name, 1)
+        for S in (1, 2):
+            c = _stream_cts(ctx, S, b, runner.level, seed=S + b)
+            want = torch.stack([kern(cs) for cs in c])
+            for _ in range(3):               # first, second, third call
+                got = runner._graphs(name, 1, kern, c)
+                calls += 1
+                assert torch.equal(got, want), (name, S)
+    assert dict(GRAPHS) == {"captures": 0, "replays": 0, "eager": calls}
+
+
+def test_count_replays_adds_delta_times():
+    """The counter replay helper adds a capture's by_shape delta k times
+    to the launch counters, launches included."""
+    fresh = KernelStats("k")
+    fresh.add(Counter({(4, 3, 256): 2, (1, 1, 256): 1}), 3)
+    assert fresh.by_shape == {(4, 3, 256): 6, (1, 1, 256): 3}
+    assert fresh.launches == 9
+
+    saved = [(s.launches, Counter(s.by_shape)) for s in graphed._STATS]
+    try:
+        before = graphed.launch_counts()
+        n0 = [s.launches for s in graphed._STATS]
+        delta = [Counter({(368, 3, 8192): 5, (24, 4, 8192): 2}),
+                 Counter({(8, 3, 8192): 7}), Counter(),
+                 Counter({(90, 1, 8192): 1})]
+        graphed.count_replays(delta, 4)
+        after = graphed.launch_counts()
+        assert [a - b for a, b in zip(after, before)] == [
+            Counter({k: 4 * v for k, v in d.items()}) for d in delta]
+        assert [s.launches - n for s, n in zip(graphed._STATS, n0)] == [
+            28, 28, 0, 4]
+    finally:
+        for s, (n, by) in zip(graphed._STATS, saved):
+            s.launches, s.by_shape = n, by
+
+
+def test_graph_key_changes_with_streams_row_and_epoch():
+    ctx = _port_ctx()
+    pg = graphed.ProjectionGraphs(ctx)
+    c1 = _stream_cts(ctx, 1, 3, 3, seed=1)
+    c3 = _stream_cts(ctx, 3, 3, 3, seed=2)
+    k = pg.key("rkv", 0, c1)
+    assert pg.key("rkv", 0, _stream_cts(ctx, 1, 3, 3, seed=5)) == k
+    assert pg.key("rkv", 0, c3) != k
+    assert pg.key("rkv", 1, c1) != k
+    assert pg.key("fv", 0, c1) != k
+    ctx.key_epoch += 1
+    assert pg.key("rkv", 0, c1) != k
