@@ -11,14 +11,12 @@ secret key exactly where the protocol says the client would -- but runs
 the client role on the device too, in float32, so a token never leaves the
 device between its blocks.
 
-  * Encode/decode are the canonical-embedding FFTs on the device in
-    complex64 (`torch.fft`).  Float32 encode rounding (~1e-6 relative) is
-    extra benign encryption noise; an encoding may differ from the
-    reference's XLA FFT by one unit in a coefficient.
-  * Single-limb decryption: server diagonals are pre-scaled by 1/PRESCALE
-    so every projection output stays below q0 / (2 * out_scale); the
-    client multiplies PRESCALE back after decoding, so decryption needs no
-    multi-limb CRT.
+  * The client's crypto and the server's projection path (device
+    encode/decode, encrypt, single-limb decryption under PRESCALE, the
+    BSGS kernels and their CUDA graphs) are `models/device_crypto.
+    DeviceClient`'s, shared with the LFM2 runner (`models/lfm2.py`); an
+    encoding may differ from the reference's XLA FFT by one unit in a
+    coefficient.
   * The WKV-7 recurrence, gates, GroupNorm and ReLU^2 are torch float32
     forms of the numpy oracle (models/rwkv7.py).
   * Randomness comes from a `torch.Generator` on the device seeded from
@@ -44,16 +42,12 @@ import numpy as np
 import torch
 
 from ..ckks.context import CkksContext
-from ..core.modops import add_mod, mont_mul
-from ..ops.bsgs import BsgsMatvec, bsgs_kernel
-from ..ops.graphed import ProjectionGraphs
 from ..utils.profiling import span
-from .client_aided import _chunk_pairs, _generator, encrypt_on_device
+from .client_aided import _chunk_pairs, _generator
+from .device_crypto import PRESCALE, DeviceClient
 from .rwkv7 import RwkvModel, RwkvState, generate_token_plaintext, layer_norm
 
 __all__ = ["PRESCALE", "DeviceTokenRunner", "run_generation_device"]
-
-PRESCALE = 8.0  # folded out of the diagonals; bounds outputs for 1-limb dec
 
 _CLIENT_FIELDS = ["ln1_w", "ln1_b", "ln2_w", "ln2_b", "ln_x_w", "ln_x_b",
                   "x_r", "x_k", "x_v", "x_g", "x_w", "x_a", "x_k_ffn",
@@ -61,7 +55,7 @@ _CLIENT_FIELDS = ["ln1_w", "ln1_b", "ln2_w", "ln2_b", "ln_x_w", "ln_x_b",
                   "g1", "g2", "k_k", "k_a", "r_k"]
 
 
-class DeviceTokenRunner:
+class DeviceTokenRunner(DeviceClient):
     """One FHE token (all blocks x 4 round trips, client math included) on
     the context's device; `generate_tokens_streams` advances S streams at
     once."""
@@ -71,26 +65,16 @@ class DeviceTokenRunner:
         """blocks: the span of blocks whose diagonals and client weights
         this runner stages (default all; `parallel.block_pipeline` gives
         each rank its own span).  A token needs every block."""
-        self.ctx = ctx
-        self.model = model
-        self.level = level
-        self.device = ctx.device
-        self.blocks = range(len(model.blocks)) if blocks is None else blocks
         d, f = model.d, model.blocks[0].f
-        self.d, self.f = d, f
-        # draws the rotation keys from ctx.rng first, then the runner's
-        # seed below: the reference's order
-        self.eng = BsgsMatvec(ctx, d)
+        super().__init__(ctx, d, level)
+        self.model = model
+        self.blocks = range(len(model.blocks)) if blocks is None else blocks
+        self.f = f
         self.n_chunks = -(-f // d)
         self.key_pairs = _chunk_pairs(self.n_chunks)
+        self._shared = {"fk"}             # one input against the pairs
         self._build_server_stacks(cache_dir)
         self._build_client_stacks()
-        self._build_tables()
-        # entropy-derived base seed (deterministic only for seeded contexts)
-        self._seed = int(ctx.rng.randint(0, 1 << 62, dtype=np.int64))
-        self._kern_b = bsgs_kernel(self.eng, level, "batched", i32=True)
-        self._kern_s = bsgs_kernel(self.eng, level, "shared", i32=True)
-        self._graphs = ProjectionGraphs(ctx)
 
     # -- server-side pre-encoding (diagonals / PRESCALE, int32) -------------
 
@@ -174,91 +158,7 @@ class DeviceTokenRunner:
                 device=self.device)
             for name in _CLIENT_FIELDS}
 
-    # -- encoder tables (device FFT encode/decode) --------------------------
-
-    def _build_tables(self):
-        ctx = self.ctx
-        enc = ctx.encoder
-        dev = self.device
-        self._t_slot = torch.as_tensor(enc._t_slot, device=dev)
-        self._t_conj = torch.as_tensor(enc._t_conj, device=dev)
-        self._zeta = torch.as_tensor(enc._zeta_pow.astype(np.complex64),
-                                     device=dev)
-        self._zeta_inv = torch.as_tensor(
-            enc._zeta_pow_inv.astype(np.complex64), device=dev)
-        self._q0 = int(ctx.q_np[0])
-        self._out_scale = float(ctx.scale) * float(ctx.scale) / float(
-            ctx.q_np[self.level - 1])
-
-    # -- device-side crypto helpers -----------------------------------------
-
-    def _encode_dev(self, z: torch.Tensor) -> torch.Tensor:
-        """complex64 slot rows [..., slots] -> int32 coefficients [..., N]
-        at ctx.scale (canonical embedding, device FFT)."""
-        n = self.ctx.n
-        with span("client.encode"):
-            vals = torch.zeros(z.shape[:-1] + (n,), dtype=torch.complex64,
-                               device=self.device)
-            vals[..., self._t_slot] = z
-            vals[..., self._t_conj] = torch.conj(z)
-            b = torch.fft.fft(vals, dim=-1) / n
-            coeffs = (b * self._zeta_inv).real * np.float32(self.ctx.scale)
-            return torch.round(coeffs).to(torch.int32)
-
-    def _decode_dev(self, coeffs_f32: torch.Tensor) -> torch.Tensor:
-        """float32 coefficient rows [..., N] (already divided by the output
-        scale) -> complex64 slots."""
-        n = self.ctx.n
-        vals = torch.fft.ifft(coeffs_f32.to(torch.complex64) * self._zeta,
-                              dim=-1) * n
-        return vals[..., self._t_slot]
-
-    def _encrypt_dev(self, m_i32: torch.Tensor, gen: torch.Generator
-                     ) -> torch.Tensor:
-        """int32 coefficients [..., N] -> ciphertexts [..., 2, l, N]."""
-        with span("client.encrypt"):
-            return encrypt_on_device(self.ctx, m_i32, gen, self.level)
-
-    def _decrypt_dev(self, out_ct: torch.Tensor) -> torch.Tensor:
-        """[..., 2, l-1, N] -> complex64 message slot rows [..., slots]
-        (single-limb decryption; |value| < q0 / (2 * out_scale) by
-        PRESCALE)."""
-        ctx = self.ctx
-        ntt = ctx.ntt
-        p1, pinv1 = ntt.p[:1], ntt.pinv[:1]
-        with span("client.decrypt"):
-            v = add_mod(out_ct[..., 0, :1, :],
-                        mont_mul(out_ct[..., 1, :1, :], ctx.s_eval[:1], p1,
-                                 pinv1), p1)
-            t = ntt.intt_from_mont(v, (0,))[..., 0, :]
-            centered = torch.where(t > self._q0 // 2, t - self._q0, t)
-            coeffs = centered.to(torch.float32) / np.float32(self._out_scale)
-            return self._decode_dev(coeffs)
-
     # -- the token step -------------------------------------------------------
-
-    def _tile(self, x: torch.Tensor) -> torch.Tensor:
-        reps = self.ctx.slots // x.shape[-1]
-        return x.repeat((1,) * (x.dim() - 1) + (reps,))
-
-    def _server_kern(self, name, j):
-        """kern(cs) of projection `name` ("rkv", "o", "fk", "fv") at block
-        row j: the server's BSGS kernel on one stream's ciphertexts cs
-        [b, 2, l, N] (b = 3, 1, 1, len(key_pairs))."""
-        pt = self.pt[name][j]
-        if name == "fk":                  # one input against the pairs
-            return lambda cs: self._kern_s(cs[0], pt)
-        if name == "o":
-            pt = pt[None]
-        return lambda cs: self._kern_b(cs, pt)
-
-    def _project(self, name, j, slots_rows, gen):
-        """Encrypt slot rows [S, b, slots] of S streams, run projection
-        `name` of block row j on every stream (one CUDA graph replay for
-        all S where `ops.graphed` engages), decrypt -> [S, b', slots]."""
-        c = self._encrypt_dev(self._encode_dev(slots_rows), gen)
-        out = self._graphs(name, j, self._server_kern(name, j), c)
-        return self._decrypt_dev(out) * np.float32(PRESCALE)
 
     def _block_body(self, bi, x, v_first, xpa, xpf, state, gen):
         """One block of the protocol for S streams -- all 4 encrypted round

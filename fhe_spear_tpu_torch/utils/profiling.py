@@ -11,7 +11,11 @@ latter records a user annotation, which the profiler mirrors onto the
 device's timeline as a device event, so a span would read as device work.
 
 `GRAPHS` counts how the server's projections ran (`ops.graphed`): CUDA
-graphs captured and replayed, and calls run eagerly.
+graphs captured and replayed, and calls run eagerly.  `MOE` counts the
+expert matvecs the server ran for an MoE layer (`models/lfm2.py`), and
+of those, the ones whose expert the client had routed the token to;
+`MOE_TIMER` holds the device time between the edges of the `moe.experts`
+spans (`DeviceTimer`).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from pathlib import Path
 
 from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["span", "Phases", "trace", "GRAPHS", "DEFAULT_TRACE_DIR"]
+__all__ = ["span", "Phases", "trace", "GRAPHS", "MOE", "MOE_TIMER",
+           "DeviceTimer", "DEFAULT_TRACE_DIR"]
 
 # inside the checkout's gitignored build directory
 DEFAULT_TRACE_DIR = str(Path(__file__).resolve().parents[2] / "build"
@@ -37,11 +42,54 @@ DEFAULT_TRACE_DIR = str(Path(__file__).resolve().parents[2] / "build"
 # zero it with GRAPHS.update(dict.fromkeys(GRAPHS, 0))
 GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
 
+# the server's expert matvecs (every held expert on every token, whatever
+# the routing) and those whose expert the client routed to; client-side
+# counts: the server is never told the routing
+MOE = {"expert_matvecs": 0, "routed_matvecs": 0}
+
 
 def span(name: str):
     """Context manager: the region as a host operator named `name` in a
     running torch profiler's trace; nothing (a few hundred ns) otherwise."""
     return _RecordFunctionFast(name)
+
+
+class DeviceTimer:
+    """Device time between the two edges of a region, from CUDA events
+    recorded on the current stream at its edges: nothing waits inside
+    the region or the step.  `read()` waits for the recorded events and
+    returns the total in ms since construction; on the CPU it records
+    nothing and reads 0."""
+
+    def __init__(self):
+        self._pending: list = []
+        self._ms = 0.0
+
+    @contextlib.contextmanager
+    def region(self, device):
+        import torch
+
+        if torch.device(device).type != "cuda":
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self._pending.append((start, end))
+
+    def read(self) -> float:
+        for start, end in self._pending:
+            end.synchronize()
+            self._ms += start.elapsed_time(end)
+        self._pending.clear()
+        return self._ms
+
+
+MOE_TIMER = DeviceTimer()
 
 
 class Phases:
