@@ -9,8 +9,9 @@
 Phases (each failure raises, and the script exits non-zero):
   1. device: fail without CUDA; print the card's name and power limit;
   2. build: compile the CUDA kernels (one nvcc per library: csrc/ntt.cu
-     once per N it checks, csrc/fourstep.cu) and the host batch encoder
-     (g++) from the sources in this checkout, all started together;
+     once per N it checks, csrc/fourstep.cu, csrc/bsgs.cu) and the host
+     batch encoder (g++) from the sources in this checkout, all started
+     together;
   3. kernels: hold NTT kernels K1/K2 and the four-step kernels
      fourstep_fwd/fourstep_inv against their plain torch versions,
      bitwise, at N=8192 and the batch shapes of the main path, at B*R=1,
@@ -21,7 +22,11 @@ Phases (each failure raises, and the script exits non-zero):
      check the round trips, fourstep_fwd against K1 through bitrev, and
      the fused `ntt_to_mont` / `intt_from_mont` of both backends against
      the composed plain calls; time kernel and plain version (CUDA events,
-     median);
+     median); hold the BSGS contraction `bsgs_contract` bitwise against
+     its plain torch tree (`contract_plain`) at G=46 and 32, l=3 and 11,
+     C=1, 8 and 13 (two launches), and a DiagonalMatvec stage at N=16384,
+     and time both at l=3 with C=1 and C=8 and at l=11 with C=8 against
+     the byte bound (inputs rotated over copies, so the L2 is cold);
   4. classic path: client-aided RWKV-7 generation through `run_generation`
      at D=2048, F=8192, N=8192, L=3, K=1, level 3 on the fused transport
      with i32 staging (depth cut to 2 blocks; 2 tokens, the first a
@@ -157,6 +162,9 @@ CORR_DEVICE = 0.999    # the bar of tests/test_device_client.py
 CORR_CLASSIC = 0.9999  # the bar of tests/test_client_aided.py
 PREENC_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke_preenc"
 KERNELS = ("ntt_fwd", "ntt_inv", "fourstep_fwd", "fourstep_inv")
+CONTRACT = "bsgs_contract"
+# the kernels whose launches the paths count, token by token
+COUNTED = KERNELS + (CONTRACT,)
 # the K1/K2 sizes the checks and paths run (N=2048: the RAG retriever)
 NTT_LOGNS = (1, 5, 6, 7, 8, 10, 11, 13, 14)
 DEVICE = "cuda"
@@ -186,10 +194,11 @@ def phase_device():
 def phase_build():
     from fhe_spear_tpu_torch import native
     from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
+    from fhe_spear_tpu_torch.ops import bsgs_cuda
 
     t0 = time.perf_counter()
     libs = tuple(ntt_cuda.library(logn) for logn in NTT_LOGNS) + (
-        fourstep_cuda.LIBRARY,)
+        fourstep_cuda.LIBRARY, bsgs_cuda.LIBRARY)
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         jobs = [pool.submit(lib.build) for lib in libs]
         enc = pool.submit(native.available)
@@ -206,7 +215,8 @@ def phase_build():
 
 def _ptxas(text: str):
     """(kernel, 'registers, stack, spills') of each entry function in
-    nvcc -Xptxas -v output (K1/K2 are templates on log2 N)."""
+    nvcc -Xptxas -v output (K1/K2 are templates on log2 N, the contraction
+    on its giant groups C)."""
     import re
 
     out, name, frame = [], None, ""
@@ -214,7 +224,8 @@ def _ptxas(text: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(ntt_fwd_kernel|ntt_inv_kernel|fourstep_fwd_kernel"
-                          r"|fourstep_inv_kernel)(?:ILi(\d+)E)?", m.group(1))
+                          r"|fourstep_inv_kernel|bsgs_contract_kernel)"
+                          r"(?:ILi(\d+)E)?", m.group(1))
             name = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2) else
                     k.group(1) if k else m.group(1))
             frame = ""
@@ -277,6 +288,98 @@ def _bound_fourstep(B: int, R: int, n: int, n1: int, n2: int):
     t_ops = ops / INT8_TC_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# the BSGS contraction, (G, l, C, N): the main path's D=2048 (G=46) and
+# D=1024 (G=32) at 3 limbs and the chain's 11, the first giant group alone
+# (C=1) and a full chunk (C=8); a DiagonalMatvec stage at N=16384 (the
+# refresh's G=6 at 45 limbs); 13 groups in one call (two launches)
+CONTRACT_SHAPES = [(46, 3, 1, N), (46, 3, 8, N), (46, 11, 8, N),
+                   (46, 11, 1, N), (32, 3, 8, N), (32, 3, 1, N),
+                   (32, 11, 8, N), (6, 45, 5, 16384), (46, 3, 13, N)]
+# timed at the main path's shapes: l=3 with C=1 and C=8, l=11 with C=8
+CONTRACT_TIMED = [(46, 3, 1, N), (46, 3, 8, N), (46, 11, 8, N)]
+# timed inputs rotate over copies holding at least this many bytes, so that
+# no call finds its inputs in the 50 MB L2 left by the call before
+COLD_BYTES = 150 << 20
+
+
+def _bound_contract(G: int, l: int, C: int, n: int):
+    """Least time for one contraction launch of C giant groups: read the
+    diagonals [C, G, l, n] and the babies [G, 2, l, n] once and write the
+    output [C, 2, l, n] once (8 bytes a word), against C*G*2*l*n terms of
+    8 32-bit operations (a Montgomery product and a 64-bit add)."""
+    words = C * G * l * n + 2 * G * l * n + 2 * C * l * n
+    t_bytes = 8 * words / HBM_BYTES_PER_S
+    t_ops = 8 * C * G * 2 * l * n / INT32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_contract():
+    """Hold the BSGS contraction (`bsgs_contract`) bitwise against its
+    plain torch tree at CONTRACT_SHAPES, then time kernel and plain tree
+    (CUDA-event medians of 21) at CONTRACT_TIMED against the byte bound."""
+    import torch
+
+    from fhe_spear_tpu_torch.core.primes import find_ntt_primes
+    from fhe_spear_tpu_torch.ops import bsgs_cuda
+    from fhe_spear_tpu_torch.ops.bsgs import contract_plain
+    from fhe_spear_tpu_torch.ops.bsgs_cuda import bsgs_contract
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def inputs(G, l, C, n):
+        primes = find_ntt_primes(n, l)
+        col = lambda v: torch.tensor(v, dtype=torch.int64,
+                                     device="cuda")[:, None]
+        p, pinv = col([q.p for q in primes]), col([q.mont_pinv
+                                                   for q in primes])
+        lead = () if C == 1 else (C,)
+        draw = lambda shape: torch.randint(
+            0, 1 << 31, shape, generator=gen, device="cuda",
+            dtype=torch.int64) % p
+        return draw((G, 2, l, n)), draw(lead + (G, l, n)), p, pinv
+
+    for G, l, C, n in CONTRACT_SHAPES:
+        babies, pt, p, pinv = inputs(G, l, C, n)
+        ok = torch.equal(bsgs_contract(babies, pt, p, pinv),
+                         contract_plain(babies, pt, p, pinv))
+        torch.cuda.synchronize()
+        log(f"  bsgs_contract [G={G}, l={l}, C={C}, N={n}]: bitwise equal "
+            f"to the plain tree: {ok}; b split over "
+            f"S={bsgs_cuda.split(G, l, n, sms)} warps")
+        if not ok:
+            raise AssertionError(f"bsgs_contract disagrees at G={G} l={l} "
+                                 f"C={C} N={n}")
+    rows = []
+    for G, l, C, n in CONTRACT_TIMED:
+        sets = [inputs(G, l, C, n)]
+        per_set = 8 * (sets[0][0].numel() + sets[0][1].numel())
+        while len(sets) * per_set < COLD_BYTES:
+            sets.append(inputs(G, l, C, n))
+        turn = [0]
+
+        def call(fn):
+            babies, pt, p, pinv = sets[turn[0] % len(sets)]
+            turn[0] += 1
+            return fn(babies, pt, p, pinv)
+
+        ms = _time_ms(lambda: call(bsgs_contract))
+        plain_ms = _time_ms(lambda: call(contract_plain))
+        bound_ms, bound_by = _bound_contract(G, l, C, n)
+        log(f"  bsgs_contract [G={G}, l={l}, C={C}, N={n}]: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {bound_ms / ms:.1%} of it), inputs rotated over "
+            f"{len(sets)} copies (cold L2)")
+        rows.append({"shape": [G, l, C, n], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        del sets
+    bsgs_cuda.reset_counts()
+    torch.cuda.empty_cache()
+    return {"by_shape": rows}
 
 
 def _residues(ntt, B, rows, gen):
@@ -512,10 +615,12 @@ def _time_kernel(name, ctx, fsb, B, rows, gen, plain=True, plain_runs=21):
 
 def _shape_counts():
     from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
+    from fhe_spear_tpu_torch.ops.bsgs_cuda import BSGS_CONTRACT
 
     stats = {"ntt_fwd": ntt_cuda.NTT_FWD, "ntt_inv": ntt_cuda.NTT_INV,
              "fourstep_fwd": fourstep_cuda.FOURSTEP_FWD,
-             "fourstep_inv": fourstep_cuda.FOURSTEP_INV}
+             "fourstep_inv": fourstep_cuda.FOURSTEP_INV,
+             CONTRACT: BSGS_CONTRACT}
     return {k: dict(st.by_shape) for k, st in stats.items()}
 
 
@@ -558,18 +663,22 @@ def phase_shapes(ctx, fsb, hists, timing):
 
 def _counts():
     from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
+    from fhe_spear_tpu_torch.ops.bsgs_cuda import BSGS_CONTRACT
 
     return {"ntt_fwd": ntt_cuda.NTT_FWD.launches,
             "ntt_inv": ntt_cuda.NTT_INV.launches,
             "fourstep_fwd": fourstep_cuda.FOURSTEP_FWD.launches,
-            "fourstep_inv": fourstep_cuda.FOURSTEP_INV.launches}
+            "fourstep_inv": fourstep_cuda.FOURSTEP_INV.launches,
+            CONTRACT: BSGS_CONTRACT.launches}
 
 
 def _reset_counts():
     from fhe_spear_tpu_torch.core import fourstep_cuda, ntt_cuda
+    from fhe_spear_tpu_torch.ops import bsgs_cuda
 
     ntt_cuda.reset_counts()
     fourstep_cuda.reset_counts()
+    bsgs_cuda.reset_counts()
 
 
 def _graphs_since(before):
@@ -631,18 +740,19 @@ def _drive(tag, fn, corr_bar, must_launch=(), must_not_launch=(),
     results = fn(on_log)
     torch.cuda.synchronize()
     counts = _counts()
-    prev = dict.fromkeys(KERNELS, 0)
-    prev_shapes = {k: {} for k in KERNELS}
+    prev = dict.fromkeys(COUNTED, 0)
+    prev_shapes = {k: {} for k in COUNTED}
     token_hist, token_hists = None, []
     for i, (c, sh) in enumerate(zip(per_token, per_token_shapes)):
         log(f"  [{tag}] launches token {i}: "
-            + " ".join(f"{k}={c[k] - prev[k]}" for k in KERNELS))
+            + " ".join(f"{k}={c[k] - prev[k]}" for k in COUNTED))
         token_hist = {k: {s: n - prev_shapes[k].get(s, 0)
                           for s, n in sh[k].items()
-                          if n - prev_shapes[k].get(s, 0)} for k in KERNELS}
-        for k in KERNELS:
+                          if n - prev_shapes[k].get(s, 0)} for k in COUNTED}
+        for k in COUNTED:
             if token_hist[k]:
-                log(f"  [{tag}]   {k} by [B, R, N]: " + ", ".join(
+                by = "[C, l, N]" if k == CONTRACT else "[B, R, N]"
+                log(f"  [{tag}]   {k} by {by}: " + ", ".join(
                     f"{list(s)} x{n}" for s, n in sorted(
                         token_hist[k].items(), key=lambda kv: -kv[1])))
         prev, prev_shapes = c, sh
@@ -723,7 +833,7 @@ def phase_paths(hists):
         "classic fused i32", lambda lg: run_generation(
             ctx, model, seed_tokens=SEED_TOKENS, num_tokens=2, level=LEVEL,
             fused=True, log_fn=lg, stage_mode="i32"),
-        CORR_CLASSIC, must_launch=("ntt_fwd", "ntt_inv"))
+        CORR_CLASSIC, must_launch=("ntt_fwd", "ntt_inv", CONTRACT))
     _drive("classic explicit expanded, 1 block", lambda lg: run_generation(
         ctx, one, seed_tokens=SEED_TOKENS, num_tokens=1, level=LEVEL,
         fused=False, log_fn=lg, stage_mode="expanded"),
@@ -734,7 +844,7 @@ def phase_paths(hists):
         "device client stockham", lambda lg: run_generation_device(
             ctx, model, seed_tokens=SEED_TOKENS, num_tokens=DEVICE_TOKENS,
             level=LEVEL, cache_dir=str(PREENC_CACHE), log_fn=lg),
-        CORR_DEVICE, must_launch=("ntt_fwd", "ntt_inv"),
+        CORR_DEVICE, must_launch=("ntt_fwd", "ntt_inv", CONTRACT),
         must_not_launch=("fourstep_fwd", "fourstep_inv"), hists=hists,
         graphed=True)
 
@@ -792,7 +902,7 @@ def phase_paths(hists):
         "device client mxu", lambda lg: run_generation_device(
             ctx_mxu, model, seed_tokens=SEED_TOKENS, num_tokens=DEVICE_TOKENS,
             level=LEVEL, cache_dir=str(PREENC_CACHE), log_fn=lg),
-        CORR_DEVICE, must_launch=("fourstep_fwd", "fourstep_inv"),
+        CORR_DEVICE, must_launch=("fourstep_fwd", "fourstep_inv", CONTRACT),
         must_not_launch=("ntt_fwd", "ntt_inv"), hists=hists, graphed=True)
     return counts
 
@@ -1979,6 +2089,8 @@ def main(argv=None):
     log("kernels: K1/K2 and fourstep_fwd/fourstep_inv against their plain "
         "torch versions")
     timing, kctx, kfsb = phase_kernels()
+    log("kernels: bsgs_contract against its plain torch tree")
+    timing[CONTRACT] = phase_contract()
     if "--kernels-only" in argv:
         log(json.dumps({"kernel_timing": timing}))
         return
@@ -2054,6 +2166,15 @@ def main(argv=None):
             "shape": t["shape"], "by_shape": t["by_shape"],
             "excess_ms_per_token": t["excess_ms_per_token"],
             "largest_by_path": t.get("largest_by_path", [])})
+    kernels.append({
+        "name": CONTRACT, "status": "new kernel; bitwise equal to plain",
+        "route": "cuda", "source": "fhe_spear_tpu_torch/csrc/bsgs.cu",
+        "replaces": "fhe_spear_tpu/ops/bsgs.py:339-360 (XLA-fused jnp, no "
+                    "Pallas kernel)",
+        "launches": counts["device_stockham"][CONTRACT],
+        "launches_by_path": {p: c[CONTRACT] for p, c in counts.items()
+                             if CONTRACT in c},
+        "library_ms": None, "by_shape": timing[CONTRACT]["by_shape"]})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,9 @@ Counterpart of `fhe_spear_tpu/ops/bsgs.py` (square-matrix engine,
     words are the unsharded engine's.
 
 Sums of canonical residues are exact in int64 and reduced once (`% p`),
-which gives the words of the reference's modular tree reductions.  The
+which gives the words of the reference's modular tree reductions.  On
+the card the baby-step contraction is one hand-written kernel a giant
+chunk (`ops/bsgs_cuda.bsgs_contract`), which sums the same way.  The
 reference's "lead" contraction layout is a TPU padding workaround and is
 not carried over.
 
@@ -54,10 +56,12 @@ from ..ckks.ciphertext import Ciphertext
 from ..ckks.context import CkksContext
 from ..core.modops import add_mod, mont_mul
 from ..native import encode_i32
+from .bsgs_cuda import bsgs_contract
 
 __all__ = ["bsgs_dims", "bsgs_kernel", "BsgsMatvec", "DiagonalMatvec",
-           "EncodedDiagonals", "extract_diagonals", "level_keys",
-           "rns_expand", "rns_expand_wide", "rotate_sum", "stack_keys"]
+           "EncodedDiagonals", "contract_plain", "extract_diagonals",
+           "level_keys", "rns_expand", "rns_expand_wide", "rotate_sum",
+           "stack_keys"]
 
 # rotated baby digits [S, d_l, T, N] int64 per batched keyswitch: the
 # keyswitch's transients are a few times this (1 GiB: one batch for every
@@ -243,10 +247,14 @@ class BsgsMatvec:
     def contract(self, babies: torch.Tensor, ptg: torch.Tensor, l: int
                  ) -> torch.Tensor:
         """sum_b babies[b] * ptg[..., b]: [G, 2, l, N] x [..., G, l, N]
-        -> [..., 2, l, N]."""
+        -> [..., 2, l, N].  CUDA tensors launch the kernel `bsgs_contract`
+        (csrc/bsgs.cu); CPU tensors run its plain version, the torch tree
+        `contract_plain`, whose words the kernel's equal."""
         p, pinv = self.ctx._p(l)
-        prod = mont_mul(babies, ptg[..., :, None, :, :], p, pinv)
-        return prod.sum(dim=-4) % p
+        if babies.is_cuda:
+            return bsgs_contract(babies.contiguous(), ptg.contiguous(), p,
+                                 pinv)
+        return contract_plain(babies, ptg, p, pinv)
 
     def giants(self, babies: torch.Tensor, pt: torch.Tensor, l: int,
                gp, gkb, gka, i32: bool = False, wide: bool = False
@@ -346,6 +354,16 @@ class DiagonalMatvec(BsgsMatvec):
         scale = ctx.scale if scale is None else scale
         return EncodedDiagonals(encode_i32(ctx.encoder, self.slot_table(diags),
                                            scale), scale, ctx.slots)
+
+
+def contract_plain(babies: torch.Tensor, ptg: torch.Tensor, p: torch.Tensor,
+                   pinv: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernel `bsgs_contract`: sum_b
+    mont(babies[b] * ptg[..., b]) mod p, [G, 2, l, N] x [..., G, l, N] ->
+    [..., 2, l, N], as a torch tree (an int64 mont_mul of the whole
+    product, a sum over b, one `% p`)."""
+    prod = mont_mul(babies, ptg[..., :, None, :, :], p, pinv)
+    return prod.sum(dim=-4) % p
 
 
 def stack_keys(ctx: CkksContext, steps):

@@ -20,8 +20,8 @@ captures each projection once as a CUDA graph and replays it, one
     one memory pool: they replay one at a time, and each output is copied
     out before the next replay.  A replay does not wait for the card, so
     the host can queue a projection while the card runs the one before.
-  * K1/K2 and four-step launches count on the host at launch
-    (`KernelStats`), and a replay launches nothing from Python: the
+  * K1/K2, four-step and BSGS contraction launches count on the host at
+    launch (`KernelStats`), and a replay launches nothing from Python: the
     counters' deltas over the capture are added back at every replay.
   * Graphs engage on a CUDA context with unsharded keys.  Otherwise (a
     CPU context; limb-sharded keys, whose keyswitch runs collectives)
@@ -42,15 +42,16 @@ import torch
 from ..core.fourstep_cuda import FOURSTEP_FWD, FOURSTEP_INV
 from ..core.ntt_cuda import NTT_FWD, NTT_INV
 from ..utils.profiling import GRAPHS, span
+from .bsgs_cuda import BSGS_CONTRACT
 
 __all__ = ["ProjectionGraphs", "launch_counts", "count_replays"]
 
-_STATS = (NTT_FWD, NTT_INV, FOURSTEP_FWD, FOURSTEP_INV)
+_STATS = (NTT_FWD, NTT_INV, FOURSTEP_FWD, FOURSTEP_INV, BSGS_CONTRACT)
 
 
 def launch_counts() -> list:
     """Copies of the launch counters' `by_shape` (K1, K2, four-step
-    forward and inverse)."""
+    forward and inverse, the BSGS contraction)."""
     return [collections.Counter(s.by_shape) for s in _STATS]
 
 

@@ -226,13 +226,14 @@ def test_count_replays_adds_delta_times():
         n0 = [s.launches for s in graphed._STATS]
         delta = [Counter({(368, 3, 8192): 5, (24, 4, 8192): 2}),
                  Counter({(8, 3, 8192): 7}), Counter(),
-                 Counter({(90, 1, 8192): 1})]
+                 Counter({(90, 1, 8192): 1}),
+                 Counter({(8, 3, 8192): 5, (1, 3, 8192): 1})]
         graphed.count_replays(delta, 4)
         after = graphed.launch_counts()
         assert [a - b for a, b in zip(after, before)] == [
             Counter({k: 4 * v for k, v in d.items()}) for d in delta]
         assert [s.launches - n for s, n in zip(graphed._STATS, n0)] == [
-            28, 28, 0, 4]
+            28, 28, 0, 4, 24]
     finally:
         for s, (n, by) in zip(graphed._STATS, saved):
             s.launches, s.by_shape = n, by
