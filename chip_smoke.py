@@ -29,8 +29,8 @@ Phases (each failure raises, and the script exits non-zero):
      the byte bound (inputs rotated over copies, so the L2 is cold);
   4. classic path: client-aided RWKV-7 generation through `run_generation`
      at D=2048, F=8192, N=8192, L=3, K=1, level 3 on the fused transport
-     with i32 staging (depth cut to 2 blocks; 2 tokens, the first a
-     warm-up), then one token of the explicit transport on 1 block;
+     (depth cut to 2 blocks; 2 tokens, the first a warm-up), then one
+     token of the explicit transport on 1 block;
   5. device client, stockham: `run_generation_device` at the same widths
      and depth (3 tokens: the server projections run eagerly, are
      captured as CUDA graphs, then replay; the replayed token must count
@@ -38,8 +38,7 @@ Phases (each failure raises, and the script exits non-zero):
   6. device client, mxu: the same 3 tokens on a four-step ("mxu") context;
      fourstep_fwd/fourstep_inv launches must rise and K1/K2 stay at 0;
   7. streams: `generate_tokens_streams` with 4 streams on 1 block, 3
-     steps (the third replays, as in 5), and `run_generation_batched`
-     with 2 streams on 1 block, 1 token.
+     steps (the third replays, as in 5).
   Every token must match its plaintext twin with logit correlation
   >= 0.999 (0.9999 on the classic path), every stream its own twin;
   8. retrieval: column-packed CT-CT scores of 50k seeded unit vectors (and
@@ -141,11 +140,12 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-# the card's memory rate, 32-bit integer rate (non-tensor) and int8
-# tensor-core rate, H100 SXM data sheet at 700 W: 3.35 TB/s, 67 T 32-bit
-# ops/s, 1,979 T int8 ops/s (dense)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
+# the peaks and the K1/K2 byte bound are the benchmark's (H100 SXM data
+# sheet at 700 W: 3.35 TB/s, 67 T 32-bit ops/s)
+from benchmark.roofline import (HBM_BYTES_PER_S, INT32_OPS_PER_S, ntt_bound_s,
+                                ntt_bytes)
+
+# the int8 tensor-core rate, same data sheet: 1,979 T int8 ops/s (dense)
 INT8_TC_OPS_PER_S = 1979e12
 # ~10 ms at the H100's ~2 GHz clock: longer than the host takes to queue
 # the 21 timed calls of a kernel
@@ -258,33 +258,13 @@ def _time_ms(fn, runs=21):
     return times[runs // 2]
 
 
-def _bytes_ntt(B: int, R: int, n: int) -> int:
-    """Bytes one transform of [B, R, n] int64 residues must move: read x
-    once, write y once (8 bytes a word), read the per-limb twist and
-    twiddle tables once (4 bytes a word: a kernel's own table layout, such
-    as K1/K2's Shoup quotients, is not part of the function)."""
-    return 2 * 8 * B * R * n + 4 * R * (2 * n - 1 + 2)
-
-
-def _bound(B: int, R: int, n: int):
-    """Least time for one K1/K2 transform of [B, R, n]: the bytes above,
-    against (n/2) log2 n butterflies (12 32-bit ops: mont_mul 8, add_mod
-    2, sub_mod 2) + n twist products (8 ops) per polynomial."""
-    logn = n.bit_length() - 1
-    ops = B * R * (12 * (n // 2) * logn + 8 * n)
-    t_bytes = _bytes_ntt(B, R, n) / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def _bound_fourstep(B: int, R: int, n: int, n1: int, n2: int):
     """Least time for one four-step transform of [B, R, n]: K1's bytes at
     the same shape, against n * (n1 + n2) modular multiply-adds per
     polynomial, each 16 8-bit limb products on the int8 tensor cores (the
     kernel's 4 x 4 limbs; a multiply-add counts as two operations)."""
     ops = B * R * n * (n1 + n2) * 16 * 2
-    t_bytes = _bytes_ntt(B, R, n) / HBM_BYTES_PER_S
+    t_bytes = ntt_bytes(B, R, n) / HBM_BYTES_PER_S
     t_ops = ops / INT8_TC_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -604,7 +584,8 @@ def _time_kernel(name, ctx, fsb, B, rows, gen, plain=True, plain_runs=21):
         bound_ms, bound_by = _bound_fourstep(B, len(rows), n, fsb.fs.n1,
                                              fsb.fs.n2)
     else:
-        bound_ms, bound_by = _bound(B, len(rows), n)
+        bound_s, bound_by = ntt_bound_s(B, len(rows), n)
+        bound_ms = 1e3 * bound_s
     log(f"  {name} [B={B}, R={len(rows)}, N={n}]: kernel {ms:.4f} ms, plain "
         + (f"{plain_ms:.4f} ms" if plain else "not timed")
         + f", bound {bound_ms:.4f} ms ({bound_by}), held bitwise (plain and "
@@ -811,8 +792,7 @@ def phase_paths(hists):
     import numpy as np
     import torch
 
-    from fhe_spear_tpu_torch.models.client_aided import run_generation, \
-        run_generation_batched
+    from fhe_spear_tpu_torch.models.client_aided import run_generation
     from fhe_spear_tpu_torch.models.device_client import DeviceTokenRunner, \
         run_generation_device
     from fhe_spear_tpu_torch.models.rwkv7 import generate_token_plaintext, \
@@ -830,13 +810,13 @@ def phase_paths(hists):
     counts = {}
 
     counts["classic"] = _drive(
-        "classic fused i32", lambda lg: run_generation(
+        "classic fused", lambda lg: run_generation(
             ctx, model, seed_tokens=SEED_TOKENS, num_tokens=2, level=LEVEL,
-            fused=True, log_fn=lg, stage_mode="i32"),
+            fused=True, log_fn=lg),
         CORR_CLASSIC, must_launch=("ntt_fwd", "ntt_inv", CONTRACT))
-    _drive("classic explicit expanded, 1 block", lambda lg: run_generation(
+    _drive("classic explicit, 1 block", lambda lg: run_generation(
         ctx, one, seed_tokens=SEED_TOKENS, num_tokens=1, level=LEVEL,
-        fused=False, log_fn=lg, stage_mode="expanded"),
+        fused=False, log_fn=lg),
         CORR_CLASSIC, must_launch=("ntt_fwd", "ntt_inv"))
     torch.cuda.empty_cache()
 
@@ -881,20 +861,7 @@ def phase_paths(hists):
         f"matches; min corr {min(corrs):.6f}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{_counts()}")
-    del runner
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    res = run_generation_batched(ctx, one, None, num_tokens=1, streams=2,
-                                 level=LEVEL, verbose=False,
-                                 log_fn=lambda m: log(f"  [batched] {m}"),
-                                 stage_mode="i32")
-    if any(r["match"] != r["streams"] for r in res):
-        raise AssertionError(f"batched: a stream is off its twin: {res}")
-    log(f"  [batched, 2 streams on 1 block] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{_counts()}")
-    del ctx
+    del runner, ctx
     torch.cuda.empty_cache()
 
     ctx_mxu = _context("mxu")
@@ -1176,7 +1143,7 @@ def phase_fullenc(new_hists):
     t0 = time.perf_counter()
     ctx = CkksContext(CkksParams(n=N, num_limbs=FE_L, num_special=FE_K,
                                  dnum=FE_DNUM), seed=0, device=DEVICE)
-    eng = FullyEncryptedFfn(ctx, D, F, stage_mode="i32")
+    eng = FullyEncryptedFfn(ctx, D, F)
     torch.cuda.synchronize()
     log(f"  keygen: {time.perf_counter() - t0:.2f}s ({ctx.dnum} digits of "
         f"{ctx.gsize} limbs, {len(ctx.galois_keys)} Galois keys; "
@@ -1207,7 +1174,7 @@ def phase_fullenc(new_hists):
     t0 = time.perf_counter()
     ctx2 = CkksContext(CkksParams(n=N, num_limbs=FE_W2_L, num_special=FE_K,
                                   dnum=FE_DNUM), seed=0, device=DEVICE)
-    eng2 = FullyEncryptedFfn(ctx2, D, F, stage_mode="i32", width=2)
+    eng2 = FullyEncryptedFfn(ctx2, D, F, width=2)
     lv2 = fe_level_schedule(FE_W2_L, 1, width=2)
     hosts2 = pre_encode_blocks(eng2, wk[:1], wv[:1], levels=lv2)
     log(f"  width 2: L={FE_W2_L}, keygen + wide pre-encode at levels {lv2}: "
@@ -1299,7 +1266,7 @@ def phase_bootstrap(new_hists):
     levels = fe_level_schedule(BOOT_L, 2, min_levels=min_levels,
                                boot_level=landing)
     t0 = time.perf_counter()
-    eng = FullyEncryptedFfn(ctx, D, F, stage_mode="i32")
+    eng = FullyEncryptedFfn(ctx, D, F)
     nd = ctx.drop_galois_keys(drop=eng.eng.warm_stacks()
                               - bt.galois_elements())
     hosts = pre_encode_blocks(eng, wk, wv, levels=levels)

@@ -24,9 +24,9 @@ reader can find each module's twin.  Rules of the port:
     launches the kernel, a CPU tensor runs the plain version.
 
 Ported so far: client-aided RWKV-7 generation on the classic transport
-(`models.client_aided.run_generation`, its batched streams variant
-`run_generation_batched`, `python -m fhe_spear_tpu_torch generate`) and
-on the device-resident client (`models.device_client`); encrypted
+(`models.client_aided.run_generation`, `python -m fhe_spear_tpu_torch
+generate`) and on the device-resident client (`models.device_client`, S
+streams a call in `generate_tokens_streams`); encrypted
 retrieval (`ops.retrieval`, `apps.demo`, `python -m fhe_spear_tpu_torch
 retrieval`) and encrypted RAG (`apps.rag`); the fully-encrypted FFN chain
 with the dnum-grouped hybrid keyswitch (`models.fully_encrypted`,
@@ -39,12 +39,13 @@ predictor and its calibration on the port's column engine (`fhesim`,
 (`apps.data_prep`); the naive per-column ablation
 (`models.naive_inference`); key, ciphertext and generation-state
 checkpoints in the reference's on-disk format (`utils.serialization`);
-spans and torch.profiler traces (`utils.profiling`); the benchmarks
-`python -m fhe_spear_tpu_torch.bench` / `.bench_streams` /
-`.bench_retrieval` / `.bench_fully_enc` / `.bench_bootstrap` /
-`.bench_rag`; and both NTT backends: the bit-reversed Stockham transform
+spans and torch.profiler traces (`utils.profiling`); the bench entries
+`python -m fhe_spear_tpu_torch.bench_retrieval` / `.bench_fully_enc` /
+`.bench_bootstrap` / `.bench_rag` (decode is timed by the cells of
+`benchmark/`); and both NTT backends: the bit-reversed Stockham transform
 (CUDA kernels in `csrc/ntt.cu`, wrapped by `core/ntt_cuda.py`) and the
 natural-order four-step transform of `ntt_backend="mxu"`
 (`parallel/ntt_fourstep.py`, CUDA kernels in `csrc/fourstep.cu`, wrapped
-by `core/fourstep_cuda.py`).  Not yet ported: the multi-device modules.
+by `core/fourstep_cuda.py`); the multi-device modules over
+`torch.distributed` (`parallel`).
 """

@@ -27,18 +27,13 @@ from __future__ import annotations
 
 import json
 import os
-import sys
 import time
 
 import numpy as np
 
-from .bench import device_name
+from .bench_common import device_name, log
 
 BASELINE_S = 0.7   # the reference paper's A100 seconds a refresh, N=16384
-
-
-def log(msg):
-    print(msg, file=sys.stderr, flush=True)
 
 
 def main(device="cuda"):

@@ -33,7 +33,7 @@ on stderr), plus the card's name and the peak device memory in `detail`:
                                 value runs PyTorch's default allocator)
 
 Random weights from `default_rng(42)` and x0 from `default_rng(4242)`,
-the context at seed 0, stage mode i32, one chunk at a time.  Weights and
+the context at seed 0, one chunk at a time.  Weights and
 pre-encoded diagonals are cached under `build/` of the checkout; the
 pre-encode cache key carries a hash of the scale primes and of x0, as the
 root entry's does.  It runs on the card and raises without one;
@@ -45,19 +45,14 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import sys
 import time
 
 import numpy as np
 
-from .bench import CACHE_ROOT, device_name
+from .bench_common import CACHE_ROOT, device_name, log
 
 BASELINE_S = 70.0   # the reference paper's A100 s/block, 19 blocks, no refresh
 BASELINE_BOOT_S = 40.0   # the same, 24 blocks with 4 refreshes
-
-
-def log(msg):
-    print(msg, file=sys.stderr, flush=True)
 
 
 def main(device="cuda"):
@@ -133,7 +128,7 @@ def main(device="cuda"):
     log(f"magnitude calibration (target {tmag}, "
         f"{time.perf_counter() - t0:.1f}s)")
 
-    eng = FullyEncryptedFfn(ctx, d, f, stage_mode="i32", width=width)
+    eng = FullyEncryptedFfn(ctx, d, f, width=width)
     # exact-scale encodes depend on the scale primes and the calibrated
     # weights depend on x0: both are in the cache key
     qh = hashlib.sha1(np.asarray(ctx.q_np[:limbs], dtype=np.uint64)

@@ -28,18 +28,13 @@ from __future__ import annotations
 
 import json
 import os
-import sys
 import time
 
 import numpy as np
 
-from .bench import CACHE_ROOT, device_name, load_or_make_model
+from .bench_common import CACHE_ROOT, device_name, load_or_make_model, log
 
 BASELINE_S = 429.0   # the reference paper's s/token of its RAG demo
-
-
-def log(msg):
-    print(msg, file=sys.stderr, flush=True)
 
 
 def main(device="cuda"):

@@ -23,18 +23,13 @@ from __future__ import annotations
 
 import json
 import os
-import sys
 import time
 
 import numpy as np
 
-from .bench import device_name
+from .bench_common import device_name, log
 
 REF_US_PER_DOC = 630e3 / 50e3   # the reference paper's A100: 50k docs, 630 ms
-
-
-def log(msg):
-    print(msg, file=sys.stderr, flush=True)
 
 
 def _sync(device):

@@ -248,7 +248,7 @@ class CkksContext:
         # Barrett magic per prime: floor(2^32 / p)
         self.mu = i64(((1 << 32) // q)[:, None].astype(np.int64))
         # 2^32 mod p, Montgomery form: the high word of a 64-bit random
-        # draw (`models.client_aided._uniform_mod`), uploaded once
+        # draw (`ckks.device_encrypt._uniform_mod`), uploaded once
         self.t32_mont = i64([(1 << 32) % int(q[i]) * r_of(i) % int(q[i])
                              for i in range(len(q))])[:, None]
         # centered-extension tables: q_s mod q_t and (q_s+1)//2

@@ -1,8 +1,8 @@
 """Client-aided RWKV-7 generation under CKKS.
 
 Counterpart of `fhe_spear_tpu/models/client_aided.py`: one stream
-(`FheRwkvClient`, `run_generation`) or S streams through one fused
-transport (`FheRwkvBatchedClient`, `run_generation_batched`).
+(`FheRwkvClient`, `run_generation`); S streams through one call are
+`models/device_client.DeviceTokenRunner.generate_tokens_streams`.
 Protocol: per block, 4 crypto round trips --
   1. client sends Enc(xr), Enc(xk), Enc(xv); server returns Enc(W_r xr),
      Enc(W_k xk), Enc(W_v xv)
@@ -14,8 +14,8 @@ Protocol: per block, 4 crypto round trips --
      server returns the conjugate-trick value projection partials.
 
 Diagonals for all blocks are pre-encoded on the host as int32 coefficient
-tensors and staged to the device per block, either expanded to residues
-("expanded") or kept as int32 and expanded inside the kernel ("i32").
+tensors and staged to the device per block as they are; the kernel
+expands them to residues one chunk of giant groups at a time.
 Client inputs are sup-norm normalized before encryption and rescaled after
 decryption (exact for a linear server).  Per projection: exactly 1 level.
 
@@ -39,55 +39,15 @@ import torch
 
 from ..ckks.ciphertext import Ciphertext
 from ..ckks.context import CkksContext
-from ..core.modops import add_mod, barrett_reduce, mont_mul, neg_mod
+from ..ckks.device_encrypt import _generator, encrypt_on_device
 from ..native import encode_i32
-from ..ops.bsgs import BsgsMatvec, _load_coeffs, bsgs_kernel, rns_expand
+from ..ops.bsgs import BsgsMatvec, bsgs_kernel
 from .rwkv7 import (
     RwkvModel, RwkvState, generate_token_plaintext, layer_norm, token_mix,
     wkv7_client,
 )
 
-__all__ = ["FheRwkvServer", "FheRwkvClient", "FheRwkvBatchedClient",
-           "run_generation", "run_generation_batched", "encrypt_on_device"]
-
-
-def _generator(device, seed: int) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
-
-
-def _uniform_mod(ctx: CkksContext, gen: torch.Generator, shape: tuple,
-                l: int) -> torch.Tensor:
-    """Uniform residues [*shape, l, N] mod q from 64 random bits each:
-    (hi * 2^32 + lo) mod q = hi * (2^32 mod q) + lo  (mod q)."""
-    p, pinv = ctx._p(l)
-    mu = ctx.mu[:l]
-    t32r = ctx.t32_mont[:l]
-    draw = lambda: torch.randint(0, 1 << 32, shape + (l, ctx.n),
-                                 generator=gen, dtype=torch.int64,
-                                 device=ctx.device)
-    hi, lo = draw(), draw()
-    return add_mod(mont_mul(barrett_reduce(hi, p, mu), t32r, p, pinv),
-                   barrett_reduce(lo, p, mu), p)
-
-
-def encrypt_on_device(ctx: CkksContext, m: torch.Tensor,
-                      gen: torch.Generator, l: int) -> torch.Tensor:
-    """Symmetric encryption of int32 coefficient encodings m [..., N] at
-    level l with device randomness from `gen` (the reference's threefry
-    draw in distribution, not in bits) -> ciphertexts [..., 2, l, N]."""
-    p, pinv = ctx._p(l)
-    shape = tuple(m.shape[:-1])
-    m_eval = rns_expand(ctx, m, l)                         # [..., l, N]
-    a = _uniform_mod(ctx, gen, shape, l)
-    e = torch.round(torch.randn(shape + (ctx.n,), generator=gen,
-                                dtype=torch.float64, device=ctx.device)
-                    * ctx.params.noise_sigma).to(torch.int32)
-    e_eval = rns_expand(ctx, e, l)
-    c0 = add_mod(add_mod(neg_mod(mont_mul(a, ctx.s_eval[:l], p, pinv), p),
-                         m_eval, p), e_eval, p)
-    return torch.stack([c0, a], dim=-3)
+__all__ = ["FheRwkvServer", "FheRwkvClient", "run_generation"]
 
 
 def _chunk_pairs(n_chunks: int):
@@ -109,9 +69,7 @@ class FheRwkvServer:
 
     def __init__(self, ctx: CkksContext, model: RwkvModel, level: int = 3,
                  max_cached_blocks: int | None = None,
-                 cache_dir: str | None = None, stage_mode: str = "expanded"):
-        if stage_mode not in ("expanded", "i32"):
-            raise ValueError(f"unknown stage_mode {stage_mode!r}")
+                 cache_dir: str | None = None):
         self.ctx = ctx
         self.level = level
         d, f = model.d, model.blocks[0].f
@@ -122,10 +80,6 @@ class FheRwkvServer:
         self.blocks_host: list[dict] = []
         self.max_cached_blocks = (len(model.blocks) if max_cached_blocks is None
                                   else max_cached_blocks)
-        # "expanded": stage NTT/Mont residues ([B,G,l,N] int64).  "i32":
-        # keep int32 coefficient diagonals on the device and expand inside
-        # the kernel (6x smaller)
-        self.stage_mode = stage_mode
         self._device: dict[int, dict] = {}
         t0 = time.perf_counter()
         if cache_dir is not None:
@@ -200,14 +154,10 @@ class FheRwkvServer:
             # max_cached_blocks-1 blocks that hit every cycle
             self._device.pop(next(reversed(self._device)))
         host = self.blocks_host[i]
-
-        def stage():
-            if self.stage_mode == "i32":
-                return {k: torch.as_tensor(np.asarray(v),
-                                           device=self.ctx.device)
-                        for k, v in host.items()}
-            return {k: _load_coeffs(self.ctx, v, self.level)
-                    for k, v in host.items()}
+        # int32 coefficients as encoded; the kernel expands them
+        stage = lambda: {k: torch.as_tensor(np.asarray(v),
+                                            device=self.ctx.device)
+                         for k, v in host.items()}
 
         try:
             staged = stage()
@@ -221,8 +171,7 @@ class FheRwkvServer:
             except torch.cuda.OutOfMemoryError as e2:
                 raise RuntimeError(
                     "block staging does not fit in device memory even with "
-                    "an empty cache -- rerun with FHE_STAGE_MODE=i32 (int32 "
-                    "coefficients + in-kernel RNS expansion)") from e2
+                    "an empty cache -- lower FHE_MAX_CACHED_BLOCKS") from e2
         self._device[i] = staged
         return staged
 
@@ -230,8 +179,6 @@ class FheRwkvServer:
 
     def project_rkv(self, i: int, ct3: Ciphertext) -> Ciphertext:
         """Batched r/k/v: ct3 holds [3, 2, l, N]."""
-        assert self.stage_mode == "expanded", \
-            "classic transport needs expanded staging"
         return self._batched_matvec(ct3, self.load_block(i)["rkv"])
 
     def project_o(self, i: int, ct: Ciphertext) -> Ciphertext:
@@ -256,7 +203,7 @@ class FheRwkvServer:
 
     def _kernel(self, l: int, mode: str):
         """kern(c, pt) for one transport shape (see `bsgs_kernel`)."""
-        return bsgs_kernel(self.eng, l, mode, self.stage_mode == "i32")
+        return bsgs_kernel(self.eng, l, mode)
 
     # -- fused round trip -----------------------------------------------------
     # encrypt -> BSGS -> partial decrypt on the device in one call; the
@@ -279,31 +226,6 @@ class FheRwkvServer:
         out = self._kernel(l, mode)(c, pt)                 # [b, 2, l-1, N]
         limbs = ctx.decrypt_limbs(out, min(2, l - 1)).cpu().numpy()
         return limbs[None] if mode == "single" else limbs
-
-    # -- stream-batched fused round trips ---------------------------------
-    # Several independent generation streams go through the same kernels
-    # with a leading stream axis: one call per round trip for all streams.
-
-    def fused_project_streams(self, kind: str, i: int, m_coeffs: np.ndarray,
-                              seed: int) -> np.ndarray:
-        """m shapes: rkv [3,S,N]; o [S,N]; ffn_key [S,N]; ffn_val [P,S,N].
-        Returns decrypted limb pairs with matching leading dims."""
-        ctx = self.ctx
-        l = self.level
-        pt = self.load_block(i)[kind]
-        m = torch.as_tensor(np.asarray(m_coeffs), device=ctx.device)
-        c = encrypt_on_device(ctx, m, _generator(ctx.device, seed), l)
-        if kind == "o":            # every stream against one matrix
-            one = self._kernel(l, "single")
-            out = torch.stack([one(cs, pt) for cs in c])
-        elif kind == "ffn_key":    # every stream against stacked matrices
-            shared = self._kernel(l, "shared")
-            out = torch.stack([shared(cs, pt) for cs in c], dim=1)
-        else:                      # matrix m against its S streams
-            one = self._kernel(l, "single")
-            out = torch.stack([torch.stack([one(cs, q) for cs in cm])
-                               for cm, q in zip(c, pt)])
-        return ctx.decrypt_limbs(out, min(2, l - 1)).cpu().numpy()
 
 
 class FheRwkvClient:
@@ -445,22 +367,15 @@ class FheRwkvClient:
 
 def run_generation(ctx: CkksContext, model: RwkvModel, seed_tokens,
                    num_tokens: int, level: int = 3, verbose: bool = True,
-                   fused: bool = True, log_fn=None,
-                   stage_mode: str | None = None):
+                   fused: bool = True, log_fn=None):
     """Prefill in plaintext, then generate under FHE with a plaintext twin;
-    reports per-token match + logit correlation.
-
-    stage_mode: "expanded" or "i32"; None reads FHE_STAGE_MODE (default
-    "expanded"), as the reference does.  The explicit transport
-    (fused=False) needs "expanded"."""
+    reports per-token match + logit correlation."""
     t0 = time.perf_counter()
     mc = os.environ.get("FHE_MAX_CACHED_BLOCKS")
     server = FheRwkvServer(
         ctx, model, level=level,
         max_cached_blocks=int(mc) if mc else None,
-        cache_dir=os.environ.get("FHE_PREENC_CACHE"),
-        stage_mode=(stage_mode if stage_mode is not None
-                    else os.environ.get("FHE_STAGE_MODE", "expanded")))
+        cache_dir=os.environ.get("FHE_PREENC_CACHE"))
     client = FheRwkvClient(ctx, model, server, fused=fused)
     if log_fn is not None:
         log_fn(f"server init {time.perf_counter() - t0:.1f}s "
@@ -495,139 +410,4 @@ def run_generation(ctx: CkksContext, model: RwkvModel, seed_tokens,
         elif verbose:
             print(f"  token {step}: ref={tok_ref} fhe={tok_fhe} "
                   f"match={tok_ref == tok_fhe} corr={corr:.6f} {dt:.2f}s")
-    return results
-
-
-class FheRwkvBatchedClient:
-    """S independent generation streams through one fused transport
-    (client math vectorized over the stream axis)."""
-
-    def __init__(self, ctx: CkksContext, model: RwkvModel,
-                 server: FheRwkvServer):
-        self.ctx = ctx
-        self.model = model
-        self.server = server
-        self.level = server.level
-        self.d, self.f = server.d, server.f
-        # see FheRwkvClient: entropy-derived base of the generator seeds
-        self._seed = int(ctx.rng.randint(0, 1 << 62, dtype=np.int64))
-
-    def _project(self, kind, i, slots):
-        ctx = self.ctx
-        self._seed += 1
-        limbs = self.server.fused_project_streams(
-            kind, i, encode_i32(ctx.encoder, slots, ctx.scale), self._seed)
-        out_scale = ctx.scale * ctx.scale / float(ctx.q_np[self.level - 1])
-        return ctx.encoder.decode(ctx.compose_coeffs(limbs), out_scale)
-
-    def _tile(self, xs):
-        reps = self.ctx.slots // xs.shape[-1]
-        return np.tile(xs, (1,) * (xs.ndim - 1) + (reps,))
-
-    def block(self, i, x, x_prev_att, x_prev_ffn, state, v_first):
-        blk = self.model.blocks[i]
-        srv, d = self.server, self.d
-        S = x.shape[0]
-
-        x_ln = layer_norm(x, blk.ln1_w, blk.ln1_b)
-        mixes = token_mix(blk, x_ln, x_prev_att)
-        xs = np.stack([mixes["r"], mixes["k"], mixes["v"]])   # [3, S, D]
-        mag = np.maximum(np.abs(xs).max(axis=-1, keepdims=True), 1e-9)
-        rkv = self._project("rkv", i, self._tile(xs / mag)
-                            ).real[..., :d] * mag
-        r, k, v = rkv[0], rkv[1], rkv[2]
-
-        gated, new_state, v, v_first = wkv7_client(blk, r, k, v, mixes,
-                                                   state, v_first)
-        mag_g = np.maximum(np.abs(gated).max(axis=-1, keepdims=True), 1e-9)
-        att = self._project("o", i, self._tile(gated / mag_g)
-                            ).real[..., :d] * mag_g
-
-        x = x + att
-        x_ffn_ln = layer_norm(x, blk.ln2_w, blk.ln2_b)
-        xk_ffn = x_ffn_ln + (x_prev_ffn - x_ffn_ln) * blk.x_k_ffn
-        mag_fk = np.maximum(np.abs(xk_ffn).max(axis=-1, keepdims=True), 1e-9)
-        z = self._project("ffn_key", i, self._tile(xk_ffn / mag_fk))
-        z = z * mag_fk[None]                                  # [P, S, slots]
-        fk = np.zeros((S, srv.n_chunks * d))
-        for p, (c0, c1) in enumerate(srv.key_pairs):
-            fk[:, c0 * d: (c0 + 1) * d] = z[p, :, :d].real
-            if c1 is not None:
-                fk[:, c1 * d: (c1 + 1) * d] = z[p, :, :d].imag
-        fk = np.maximum(fk[:, : self.f], 0.0) ** 2
-
-        pads = []
-        for c0, c1 in srv.key_pairs:
-            x0 = fk[:, c0 * d: (c0 + 1) * d]
-            x0 = np.pad(x0, [(0, 0), (0, d - x0.shape[1])])
-            if c1 is not None:
-                x1 = fk[:, c1 * d: (c1 + 1) * d]
-                x1 = np.pad(x1, [(0, 0), (0, d - x1.shape[1])])
-            else:
-                x1 = np.zeros((S, d))
-            pads.append(x0 + 1j * x1)
-        zp = np.stack(pads)                                   # [P, S, D]
-        mag_v = np.maximum(np.maximum(np.abs(zp.real).max(axis=-1),
-                                      np.abs(zp.imag).max(axis=-1)
-                                      )[..., None], 1e-9)
-        zv = self._project("ffn_val", i, self._tile(zp / mag_v)) * mag_v
-        v_ffn = zv[..., :d].real.sum(axis=0)                  # [S, D]
-
-        x = x + v_ffn
-        return x, x_ln, x_ffn_ln, new_state, v_first
-
-    def generate_token(self, token_ids, state: RwkvState):
-        m = self.model
-        token_ids = np.asarray(token_ids)
-        x = layer_norm(np.array(m.emb[token_ids]), m.ln0_w, m.ln0_b)
-        new = state.copy()
-        v_first = None
-        for i in range(len(m.blocks)):
-            x, xpa, xpf, s, v_first = self.block(
-                i, x, state.x_prev_att[i], state.x_prev_ffn[i],
-                state.wkv[i], v_first)
-            new.x_prev_att[i], new.x_prev_ffn[i], new.wkv[i] = xpa, xpf, s
-        logits = layer_norm(x, m.ln_out_w, m.ln_out_b) @ m.head_w
-        return logits, new
-
-
-def run_generation_batched(ctx, model, seed_tokens, num_tokens, streams=8,
-                           level=3, verbose=True, log_fn=None,
-                           stage_mode: str | None = None):
-    """Aggregate-throughput mode: `streams` independent sequences, each
-    verified token-exact against its own plaintext twin.  The first tokens
-    are drawn from RandomState(7) (seed_tokens is not used, as in the
-    reference); stage_mode as in run_generation."""
-    mc = os.environ.get("FHE_MAX_CACHED_BLOCKS")
-    server = FheRwkvServer(
-        ctx, model, level=level,
-        max_cached_blocks=int(mc) if mc else None,
-        cache_dir=os.environ.get("FHE_PREENC_CACHE"),
-        stage_mode=(stage_mode if stage_mode is not None
-                    else os.environ.get("FHE_STAGE_MODE", "expanded")))
-    client = FheRwkvBatchedClient(ctx, model, server)
-    rng = np.random.RandomState(7)
-    vocab = model.emb.shape[0]
-    toks = rng.randint(0, vocab, streams)
-
-    st_fhe = model.zero_state(streams)
-    st_ref = model.zero_state(streams)
-    tok_f = tok_r = toks
-    results = []
-    for step in range(num_tokens):
-        logits_r, st_ref = generate_token_plaintext(model, tok_r, st_ref)
-        t0 = time.perf_counter()
-        logits_f, st_fhe = client.generate_token(tok_f, st_fhe)
-        dt = time.perf_counter() - t0
-        tok_r = np.argmax(logits_r, axis=-1)
-        tok_f = np.argmax(logits_f, axis=-1)
-        match = int((tok_f == tok_r).sum())
-        results.append({"match": match, "streams": streams, "sec": dt,
-                        "tokens_per_s": streams / dt})
-        msg = (f"step {step}: {match}/{streams} streams match, {dt:.2f}s "
-               f"({streams / dt:.2f} tok/s aggregate)")
-        if log_fn is not None:
-            log_fn(msg)
-        elif verbose:
-            print("  " + msg)
     return results

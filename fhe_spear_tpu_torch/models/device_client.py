@@ -42,8 +42,9 @@ import numpy as np
 import torch
 
 from ..ckks.context import CkksContext
+from ..ckks.device_encrypt import _generator
 from ..utils.profiling import span
-from .client_aided import _chunk_pairs, _generator
+from .client_aided import _chunk_pairs
 from .device_crypto import PRESCALE, DeviceClient
 from .rwkv7 import RwkvModel, RwkvState, generate_token_plaintext, layer_norm
 
@@ -133,6 +134,8 @@ class DeviceTokenRunner(DeviceClient):
         # device-resident int32 stacks [nb, ...]
         self.pt = {k: torch.as_tensor(np.stack(v), device=self.device)
                    for k, v in stacks.items()}
+        # W_o's row as a stack of one, like the other rows
+        self.pt["o"] = self.pt["o"][:, None]
 
     def _out_chunk(self, w, c):
         d = self.d

@@ -30,11 +30,11 @@ import numpy as np
 import torch
 
 from ..ckks.context import CkksContext
+from ..ckks.device_encrypt import encrypt_on_device
 from ..core.modops import add_mod, mont_mul
 from ..ops.bsgs import BsgsMatvec, bsgs_dims, bsgs_kernel
 from ..ops.graphed import ProjectionGraphs
 from ..utils.profiling import span
-from .client_aided import encrypt_on_device
 
 __all__ = ["PRESCALE", "DeviceClient", "diagonal_slots"]
 
@@ -78,8 +78,8 @@ class DeviceClient:
         self._build_tables()
         # entropy-derived base seed (deterministic only for seeded contexts)
         self._seed = int(ctx.rng.randint(0, 1 << 62, dtype=np.int64))
-        self._kern_b = bsgs_kernel(self.eng, level, "batched", i32=True)
-        self._kern_s = bsgs_kernel(self.eng, level, "shared", i32=True)
+        self._kern_b = bsgs_kernel(self.eng, level, "batched")
+        self._kern_s = bsgs_kernel(self.eng, level, "shared")
         self._graphs = ProjectionGraphs(ctx)
         self.pt: dict = {}
         self._shared: set = set()
@@ -198,8 +198,6 @@ class DeviceClient:
         pt = self.pt[name][j]
         if name in self._shared:          # one input against the stack
             return lambda cs: self._kern_s(cs[0], pt)
-        if pt.dim() == 3:                 # one matrix
-            pt = pt[None]
         return lambda cs: self._kern_b(cs, pt)
 
     def _project(self, name, j, slots_rows, gen):

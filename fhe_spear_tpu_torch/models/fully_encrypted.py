@@ -89,16 +89,15 @@ class FullyEncryptedFfn:
     """Fully-encrypted FFN block evaluator for fixed (ctx, D, F)."""
 
     def __init__(self, ctx: CkksContext, d: int, f: int,
-                 seq_chunks: bool = False, stage_mode: str = "expanded",
+                 seq_chunks: bool = False, stage_mode: str = "i32",
                  key_sharding=None, width: int = 1):
         """seq_chunks: ignored (the reference's lax.map-over-chunks switch;
         the port always runs one chunk at a time, see the module
         docstring).
 
-        stage_mode: "expanded" stages diagonals as NTT/Mont residues
-        [B, G, l, N] (l-proportional memory); "i32" stages them as int32
-        coefficients [B, G, N] and RNS-expands one giant chunk at a time
-        inside the kernel -- the only mode that fits deep chains.
+        stage_mode: "i32", the one staging: int32 coefficients [B, G, N]
+        (width 2: planes [B, G, 2, N]), RNS-expanded one giant chunk at a
+        time inside the kernel.  Any other value raises ValueError.
 
         key_sharding: the rank group over which the context's evaluation
         keys are limb-sharded (`CkksContext.shard_eval_keys`, before the
@@ -113,14 +112,14 @@ class FullyEncryptedFfn:
         3-limb CRT path.  Requires exact (level-scheduled) pre-encodes."""
         if width not in (1, 2):
             raise ValueError(f"width must be 1 or 2, got {width}")
-        if stage_mode not in ("expanded", "i32"):
-            raise ValueError(f"unknown stage_mode {stage_mode!r}")
+        if stage_mode != "i32":
+            raise ValueError(f"the diagonals stage as int32 coefficients "
+                             f"(stage_mode 'i32'), not {stage_mode!r}")
         self.width = width
         self.ctx = ctx
         self.d, self.f = d, f
         self.eng = BsgsMatvec(ctx, d, key_sharding=key_sharding)
         self.n_chunks = -(-f // d)
-        self.stage_mode = stage_mode
 
     def diag_scales(self, level: int) -> tuple[float, float]:
         """Exact scale management: key diagonals at s_key = q[l-1], value
@@ -176,23 +175,14 @@ class FullyEncryptedFfn:
         return out
 
     def load_block(self, host: dict, level: int) -> dict:
-        """Stage one block's diagonals at the levels they are consumed: key
-        at `level`, val at `level - 2` (i32 and width 2: the int32
-        coefficients are copied to the device unchanged; kernels expand
-        them one giant chunk at a time)."""
-        ctx = self.ctx
-        if self._staged_as_int32():
-            out = {k: torch.as_tensor(np.asarray(host[k]), device=ctx.device)
-                   for k in ("key", "val")}
-        else:
-            out = {"key": _load_coeffs(ctx, host["key"], level),
-                   "val": _load_coeffs(ctx, host["val"], level - 2)}
+        """Stage one block's diagonals, consumed key at `level` and val at
+        `level - 2`: the int32 coefficients are copied to the device
+        unchanged; kernels expand them one giant chunk at a time."""
+        out = {k: torch.as_tensor(np.asarray(host[k]), device=self.ctx.device)
+               for k in ("key", "val")}
         if "level" in host:
             out["level"] = int(host["level"])
         return out
-
-    def _staged_as_int32(self) -> bool:
-        return self.stage_mode == "i32" or self.width == 2
 
     def __call__(self, ct_x: Ciphertext, staged: dict) -> Ciphertext:
         """One fully-encrypted block; level l -> l-3 (width 2: l -> l-6)."""
@@ -262,9 +252,7 @@ class FullyEncryptedFfn:
         """kern(c, pt [k, ...]) -> [k, 2, l-1, N], c [2, l, N] ("shared")
         or [k, 2, l, N] ("batched").  Built per call: the level's selected
         keys live only while the projection runs."""
-        return bsgs_kernel(self.eng, l, mode,
-                           i32=self.stage_mode == "i32" and self.width == 1,
-                           wide=self.width == 2)
+        return bsgs_kernel(self.eng, l, mode)
 
     def _sum_chunks(self, x: torch.Tensor, l: int) -> torch.Tensor:
         """Sum over the chunk axis of [k, 2, l, N] residues, exact in int64
@@ -345,7 +333,7 @@ def pre_encode_blocks(eng: FullyEncryptedFfn, w_keys, w_vals,
 def run_fully_encrypted(ctx: CkksContext, w_keys, w_vals, x0,
                         bootstrap_fn=None, min_levels: int | None = None,
                         verbose: bool = True, return_ct: bool = False,
-                        seq_chunks: bool = False, stage_mode: str = "expanded",
+                        seq_chunks: bool = False,
                         pre_encoded: list | None = None, eng=None,
                         log_fn=None, calibrated: bool = False,
                         cache_dir: str | None = None, width: int = 1):
@@ -363,8 +351,7 @@ def run_fully_encrypted(ctx: CkksContext, w_keys, w_vals, x0,
     is copied to the device on a thread while block b computes."""
     d, f = np.asarray(w_keys[0]).shape
     if eng is None:
-        eng = FullyEncryptedFfn(ctx, d, f, stage_mode=stage_mode,
-                                width=width)
+        eng = FullyEncryptedFfn(ctx, d, f, width=width)
     width = eng.width
     if min_levels is None:
         min_levels = 4 if width == 1 else 8
@@ -442,8 +429,7 @@ def run_fully_encrypted(ctx: CkksContext, w_keys, w_vals, x0,
 
         # prefetch block b+1's int32 staging (a host-to-device copy, no
         # kernel) on a thread while this block computes
-        if (prefetch and pre_encoded is not None and eng._staged_as_int32()
-                and b + 1 < len(pre_encoded)):
+        if prefetch and pre_encoded is not None and b + 1 < len(pre_encoded):
             nh = pre_encoded[b + 1]
             nl = nh.get("level")
             if nl is not None and nl == ct.level - 3 * width:

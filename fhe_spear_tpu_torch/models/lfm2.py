@@ -55,8 +55,8 @@ import numpy as np
 import torch
 
 from ..ckks.context import CkksContext
+from ..ckks.device_encrypt import _generator
 from ..utils.profiling import MOE, MOE_TIMER, span
-from .client_aided import _generator
 from .device_crypto import DeviceClient
 
 __all__ = ["ShortConvWeights", "AttentionWeights", "SwiGluWeights",

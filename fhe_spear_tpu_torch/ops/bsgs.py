@@ -8,15 +8,16 @@ Counterpart of `fhe_spear_tpu/ops/bsgs.py` (square-matrix engine,
     ONE batched keyswitch over a stacked [G-1, ...] tensor of rotation keys
     and automorphism permutations -- in pieces where the rotated digits of
     all G-1 would pass `BABY_DIGIT_BYTES` (deep chains).
-  * Giant groups run in chunks of FHE_GIANT_CHUNK (default 8): each chunk
-    batches its diagonal expansion, its contraction against the G baby
-    rotations, and its giant-rotation keyswitch.
-  * Diagonals are pre-encoded on the host to coefficient-domain int32 and
-    either expanded to NTT/Montgomery residues at block-load time
-    ("expanded") or inside the kernel, one chunk of giant groups at a time
-    (i32 staging: a bounded transient regardless of B or l).  Composite
-    (width-2, ~2^56) scales stage two int32 planes per coefficient
-    (`encode_wide`, expanded in the kernel by `rns_expand_wide`).
+  * Giant groups run in chunks of GIANT_CHUNK (the contraction kernel's
+    MAX_C, 8): each chunk batches its diagonal expansion, its contraction
+    against the G baby rotations, and its giant-rotation keyswitch.
+  * A staged matrix holds its diagonals in one of three formats, fixed
+    when it is staged and read from the tensor by `expand_groups` alone:
+    NTT/Mont residues [B, G, l, N] int64 (`load`), int32 coefficients
+    [B, G, N] (`encode`, expanded inside the kernel one chunk of giant
+    groups at a time: a bounded transient regardless of B or l), or, for
+    composite (width-2, ~2^56) scales, two int32 planes [B, G, 2, N] a
+    coefficient (`encode_wide`, expanded by `rns_expand_wide`).
   * ONE level-independent stack of the full rotation keys; each call
     selects its level's digits and target rows from it (a deep chain
     walks ~20 levels).
@@ -46,7 +47,6 @@ at N=16384 with radix 4), the stack holds the identity permutation and
 from __future__ import annotations
 
 import math
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,14 +54,18 @@ import torch
 
 from ..ckks.ciphertext import Ciphertext
 from ..ckks.context import CkksContext
+from ..ckks.device_encrypt import rns_expand, rns_expand_wide
 from ..core.modops import add_mod, mont_mul
 from ..native import encode_i32
-from .bsgs_cuda import bsgs_contract
+from .bsgs_cuda import MAX_C, bsgs_contract
 
 __all__ = ["bsgs_dims", "bsgs_kernel", "BsgsMatvec", "DiagonalMatvec",
-           "EncodedDiagonals", "contract_plain", "extract_diagonals",
-           "level_keys", "rns_expand", "rns_expand_wide", "rotate_sum",
-           "stack_keys"]
+           "EncodedDiagonals", "GIANT_CHUNK", "contract_plain",
+           "expand_groups", "extract_diagonals", "level_keys", "rns_expand",
+           "rns_expand_wide", "rotate_sum", "stack_keys"]
+
+# giant groups a chunk: one launch of the contraction kernel
+GIANT_CHUNK = MAX_C
 
 # rotated baby digits [S, d_l, T, N] int64 per batched keyswitch: the
 # keyswitch's transients are a few times this (1 GiB: one batch for every
@@ -125,6 +129,7 @@ class BsgsMatvec:
         eng = BsgsMatvec(ctx, d=1024)
         enc = eng.encode(W)              # host: [B, G, N] int32
         pt  = eng.load(enc, level)       # device: [B, G, l, N] NTT/Mont
+                                         # (or enc.coeffs as they are)
         y   = eng(ct_x, pt)              # level l -> l-1, slots = W @ x
     """
 
@@ -134,12 +139,19 @@ class BsgsMatvec:
         `CkksContext.shard_eval_keys`; the stacks then hold this rank's key
         rows, so their memory divides by the group size."""
         assert ctx.slots % d == 0, (d, ctx.slots)
+        self.G, self.B = bsgs_dims(d)
+        self._setup(ctx, d, tuple(range(1, self.G)),
+                    tuple(g * self.G for g in range(1, self.B)),
+                    key_sharding)
+
+    def _setup(self, ctx: CkksContext, d: int, baby_steps: tuple,
+               giant_steps: tuple, key_sharding) -> None:
+        """The state every engine shares: its rotation steps, their keys
+        generated now (the reference's draw order), no key stack yet."""
         self.ctx = ctx
         self.d = d
-        self.G, self.B = bsgs_dims(d)
-        self.baby_steps = tuple(range(1, self.G))
-        self.giant_steps = tuple(g * self.G for g in range(1, self.B))
-        self.giant_chunk = max(1, int(os.environ.get("FHE_GIANT_CHUNK", "8")))
+        self.baby_steps = baby_steps
+        self.giant_steps = giant_steps
         self.key_sharding = key_sharding
         ctx.ensure_galois(self.baby_steps + self.giant_steps)
         self._full = None
@@ -193,10 +205,11 @@ class BsgsMatvec:
 
     def __call__(self, ct: Ciphertext, pt: torch.Tensor,
                  pt_scale: float | None = None) -> Ciphertext:
+        """W x for one ciphertext and one staged matrix pt, in any format
+        of `expand_groups` (which holds residues to the level)."""
         l = ct.level
-        assert pt.shape[-2] == l, (pt.shape, l)
         scale = self.ctx.scale if pt_scale is None else pt_scale
-        out = self._kernel_raw(l)(ct.c, pt, *self._xs(l))
+        out = bsgs_kernel(self, l, "single")(ct.c, pt)
         return Ciphertext(out, ct.scale * scale / float(self.ctx.q_np[l - 1]))
 
     def _xs(self, l: int):
@@ -257,43 +270,22 @@ class BsgsMatvec:
         return contract_plain(babies, ptg, p, pinv)
 
     def giants(self, babies: torch.Tensor, pt: torch.Tensor, l: int,
-               gp, gkb, gka, i32: bool = False, wide: bool = False
-               ) -> torch.Tensor:
+               gp, gkb, gka) -> torch.Tensor:
         """sum_g rot_{gG}(sum_b babies[b] * pt[g, b]) for the giant groups of
-        pt ([B, G, l, N] residues; [B, G, N] int32 coefficients when i32;
-        [B, G, 2, N] int32 planes when wide), then the rescale ->
-        [2, l-1, N]."""
+        one staged matrix pt (any format of `expand_groups`), then the
+        rescale -> [2, l-1, N]."""
         ctx = self.ctx
         p, _ = ctx._p(l)
-        if wide:
-            expand = lambda ptg: rns_expand_wide(ctx, ptg, l)
-        elif i32:
-            expand = lambda ptg: rns_expand(ctx, ptg, l)
-        else:
-            expand = lambda ptg: ptg
-
-        contract = lambda ptg: self.contract(babies, ptg, l)
-        y = contract(expand(pt[0]))
+        contract = lambda groups: self.contract(
+            babies, expand_groups(ctx, pt, l, groups), l)
+        y = contract(0)
         ng = len(self.giant_steps)
-        for c0 in range(0, ng, self.giant_chunk):
-            c1 = min(ng, c0 + self.giant_chunk)
-            accs = contract(expand(pt[1 + c0: 1 + c1]))     # [c, 2, l, N]
-            perms = gp[c0:c1]
-            part = rotate_sum(ctx, accs, perms, gkb[c0:c1], gka[c0:c1], l)
+        for c0 in range(0, ng, GIANT_CHUNK):
+            c1 = min(ng, c0 + GIANT_CHUNK)
+            accs = contract(slice(1 + c0, 1 + c1))          # [c, 2, l, N]
+            part = rotate_sum(ctx, accs, gp[c0:c1], gkb[c0:c1], gka[c0:c1], l)
             y = add_mod(y, part, p)
         return ctx._rescale_core(y, l)
-
-    def _kernel_raw(self, l: int, i32: bool = False, wide: bool = False):
-        """kernel(c, pt, bp, bkb, bka, gp, gkb, gka) -> [2, l-1, N]: one
-        ciphertext c [2, l, N] against one matrix pt.  i32=True: pt holds
-        int32 coefficient encodings [B, G, N], RNS-expanded in chunks
-        inside the kernel; wide=True: the two-plane format of
-        `encode_wide`."""
-
-        def kernel(c, pt, bp, bkb, bka, gp, gkb, gka):
-            return self.giants(self.babies(c, l, bp, bkb, bka), pt, l,
-                               gp, gkb, gka, i32=i32, wide=wide)
-        return kernel
 
 
 class DiagonalMatvec(BsgsMatvec):
@@ -309,10 +301,8 @@ class DiagonalMatvec(BsgsMatvec):
     """
 
     def __init__(self, ctx: CkksContext, offsets):
-        self.ctx = ctx
         s = ctx.slots
         signed = sorted({((o % s) + s // 2) % s - s // 2 for o in offsets})
-        self.d = s
         u = 0
         for o in signed:
             u = math.gcd(u, abs(o))
@@ -325,12 +315,8 @@ class DiagonalMatvec(BsgsMatvec):
         self._g_list = [0] + sorted(g for g in gset if g != 0)
         self._g_row = {g: i for i, g in enumerate(self._g_list)}
         self.B = len(self._g_list)
-        self.baby_steps = tuple(u * b for b in range(1, self.G))
-        self.giant_steps = tuple(g * self.G * u for g in self._g_list[1:])
-        self.giant_chunk = max(1, int(os.environ.get("FHE_GIANT_CHUNK", "8")))
-        self.key_sharding = None
-        ctx.ensure_galois(self.baby_steps + self.giant_steps)
-        self._full = None
+        self._setup(ctx, s, tuple(u * b for b in range(1, self.G)),
+                    tuple(g * self.G * u for g in self._g_list[1:]), None)
 
     def slot_table(self, diags: dict) -> np.ndarray:
         """{offset: diagonal[slots]} -> the [B, G, slots] complex layout
@@ -406,17 +392,16 @@ def rotate_sum(ctx: CkksContext, accs: torch.Tensor, perms: torch.Tensor,
     return torch.stack([rot0.sum(dim=0), ks[:, 1].sum(dim=0)]) % p
 
 
-def bsgs_kernel(eng: BsgsMatvec, l: int, mode: str, i32: bool = False,
-                wide: bool = False):
+def bsgs_kernel(eng: BsgsMatvec, l: int, mode: str):
     """kern(c, pt) for one transport shape:
       "single":  c [2, l, N] against one matrix;
       "shared":  one c against stacked matrices pt [P, ...] (the baby
                  rotations are computed once and shared);
       "batched": c [P, 2, l, N] against matching matrices pt [P, ...].
-    Matrices run one after another, so only one matrix's expanded residues
-    are live at a time in i32 and wide staging (int32 coefficients).  The
-    level's keys are selected once, and again after the context's keys
-    were replaced (`key_epoch`)."""
+    Each matrix is in any format of `expand_groups`.  Matrices run one
+    after another, so only one chunk's expanded residues are live at a
+    time.  The level's keys are selected once, and again after the
+    context's keys were replaced (`key_epoch`)."""
     sel = [None, None]                      # [epoch, level-l keys]
 
     def keys():
@@ -425,44 +410,36 @@ def bsgs_kernel(eng: BsgsMatvec, l: int, mode: str, i32: bool = False,
             sel[0] = eng.ctx.key_epoch
         return sel[1]
 
-    def one(babies, pt, gp, gkb, gka):
-        return eng.giants(babies, pt, l, gp, gkb, gka, i32=i32, wide=wide)
-
     def kern(c, pt):
         bp, bkb, bka, *giant = keys()
         if mode == "single":
-            return one(eng.babies(c, l, bp, bkb, bka), pt, *giant)
+            return eng.giants(eng.babies(c, l, bp, bkb, bka), pt, l, *giant)
         if mode == "shared":
             babies = eng.babies(c, l, bp, bkb, bka)
-            return torch.stack([one(babies, q, *giant) for q in pt])
-        return torch.stack([one(eng.babies(cq, l, bp, bkb, bka), q, *giant)
+            return torch.stack([eng.giants(babies, q, l, *giant) for q in pt])
+        return torch.stack([eng.giants(eng.babies(cq, l, bp, bkb, bka), q, l,
+                                       *giant)
                             for cq, q in zip(c, pt)])
     keys()
     return kern
 
 
-def rns_expand(ctx: CkksContext, coeffs: torch.Tensor, level: int
-               ) -> torch.Tensor:
-    """Signed int32 coefficient encodings [..., N] -> NTT/Mont residues
-    [..., l, N] (device-side RNS expansion; also the fused-encrypt core)."""
-    rows = tuple(range(level))
-    p, _ = ctx._p(level)
-    r = coeffs.to(torch.int64)[..., None, :] % p      # canonical in [0, p)
-    return ctx.ntt.ntt_to_mont(r, rows)
-
-
-def rns_expand_wide(ctx: CkksContext, planes: torch.Tensor, level: int
-                    ) -> torch.Tensor:
-    """Two-plane int64-split coefficient encodings [..., 2, N] (value =
-    hi*2^31 + lo, |value| < 2^62) -> NTT/Mont residues [..., l, N]: the
-    wide staging word of composite-scale (width-2) diagonals.  The value is
-    formed exactly in int64 and reduced once, which gives the reference's
-    canonical words."""
-    rows = tuple(range(level))
-    p, _ = ctx._p(level)
-    v = (planes[..., 1, :].to(torch.int64) * (1 << 31)
-         + planes[..., 0, :].to(torch.int64))
-    return ctx.ntt.ntt_to_mont(v[..., None, :] % p, rows)
+def expand_groups(ctx: CkksContext, pt: torch.Tensor, l: int, groups
+                  ) -> torch.Tensor:
+    """The giant groups `groups` (an index or a slice of axis 0) of one
+    staged matrix pt as NTT/Mont residues at level l.  The one place that
+    reads a staged matrix's format, from its dtype and rank:
+      int64 [B, G, l, N]  residues (`BsgsMatvec.load`): passed through;
+      int32 [B, G, N]     coefficients (`encode`): `rns_expand`;
+      int32 [B, G, 2, N]  planes (`encode_wide`): `rns_expand_wide`."""
+    if pt.dtype == torch.int64 and pt.dim() == 4:
+        assert pt.shape[-2] == l, (tuple(pt.shape), l)
+        return pt[groups]
+    if pt.dtype == torch.int32 and pt.dim() == 3:
+        return rns_expand(ctx, pt[groups], l)
+    if pt.dtype == torch.int32 and pt.dim() == 4 and pt.shape[-2] == 2:
+        return rns_expand_wide(ctx, pt[groups], l)
+    raise ValueError(f"not a staged matrix: {pt.dtype} {tuple(pt.shape)}")
 
 
 def _load_coeffs(ctx: CkksContext, coeffs: np.ndarray, level: int

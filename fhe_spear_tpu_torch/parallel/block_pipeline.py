@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.client_aided import _generator
+from ..ckks.device_encrypt import _generator
 from ..models.device_client import DeviceTokenRunner
 from ..models.rwkv7 import RwkvState, layer_norm
 from .collectives import RankGroup, all_gather, ring_shift

@@ -240,7 +240,7 @@ def key_sharded_chain(group, n=256, limbs=14, special=3, dnum=5, ctx_seed=56,
     wk, wv, x0 = _fe_weights(weights, d, f, blocks)
     levels = fe_level_schedule(ctx.L, blocks)
     ct0 = ctx.encrypt_replicated(x0)
-    eng1 = FullyEncryptedFfn(ctx, d, f, stage_mode="i32")
+    eng1 = FullyEncryptedFfn(ctx, d, f)
     # one host pre-encode serves every run (the diagonals are key-free)
     hosts = [eng1.encode_block(np.asarray(wk[b]), np.asarray(wv[b]),
                                level=levels[b]) for b in range(blocks)]
@@ -258,8 +258,7 @@ def key_sharded_chain(group, n=256, limbs=14, special=3, dnum=5, ctx_seed=56,
         if reload_keys:
             save_eval_keys(path, ctx)
         ctx.shard_eval_keys(group)
-        eng2 = FullyEncryptedFfn(ctx, d, f, stage_mode="i32",
-                                 key_sharding=group)
+        eng2 = FullyEncryptedFfn(ctx, d, f, key_sharding=group)
         with _Span(group) as sharded:
             out2 = chain(eng2)
         res = {}

@@ -26,8 +26,9 @@ import torch
 
 from ..ckks.ciphertext import Ciphertext
 from ..core.modops import add_mod
-from ..ops.bsgs import (BsgsMatvec, EncodedDiagonals, _load_coeffs,
-                        bsgs_dims, level_keys, rotate_sum, stack_keys)
+from ..ops.bsgs import (GIANT_CHUNK, BsgsMatvec, EncodedDiagonals,
+                        _load_coeffs, bsgs_dims, expand_groups, level_keys,
+                        rotate_sum, stack_keys)
 from .collectives import RankGroup, psum_mod
 
 __all__ = ["ShardedBsgsMatvec"]
@@ -74,19 +75,20 @@ class ShardedBsgsMatvec:
         return self._full
 
     def kernel(self, l: int):
-        """kern(c [2, l, N], pt [B/size, G, l, N]) -> [2, l-1, N]: the same
-        words on every rank."""
+        """kern(c [2, l, N], pt) -> [2, l-1, N] for this rank's groups pt
+        [B/size, G, ...] of one matrix, in any format of
+        `ops.bsgs.expand_groups`: the same words on every rank."""
         ctx, eng = self.ctx, self.eng
         p, _ = ctx._p(l)
         bp, bkb, bka, gp, gkb, gka = level_keys(ctx, self._stacks(), l)
-        step = eng.giant_chunk
 
         def kern(c, pt):
             babies = eng.babies(c, l, bp, bkb, bka)
             y = None
-            for c0 in range(0, pt.shape[0], step):
-                c1 = min(pt.shape[0], c0 + step)
-                accs = eng.contract(babies, pt[c0:c1], l)     # [c, 2, l, N]
+            for c0 in range(0, pt.shape[0], GIANT_CHUNK):
+                c1 = min(pt.shape[0], c0 + GIANT_CHUNK)
+                accs = eng.contract(
+                    babies, expand_groups(ctx, pt, l, slice(c0, c1)), l)
                 part = rotate_sum(ctx, accs, gp[c0:c1], gkb[c0:c1],
                                   gka[c0:c1], l)
                 y = part if y is None else add_mod(y, part, p)
@@ -96,8 +98,7 @@ class ShardedBsgsMatvec:
     def __call__(self, ct: Ciphertext, pt: torch.Tensor,
                  pt_scale: float | None = None) -> Ciphertext:
         l = ct.level
-        assert pt.shape[-2] == l and pt.shape[0] == self.hi - self.lo, (
-            pt.shape, l)
+        assert pt.shape[0] == self.hi - self.lo, (pt.shape, self.lo, self.hi)
         scale = self.ctx.scale if pt_scale is None else pt_scale
         out = self.kernel(l)(ct.c, pt)
         return Ciphertext(out, ct.scale * scale / float(self.ctx.q_np[l - 1]))

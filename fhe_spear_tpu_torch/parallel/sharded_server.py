@@ -10,8 +10,7 @@ stages only its giant groups of every block's diagonals.  Every rank runs
 the same client (`FheRwkvClient(..., fused=False)`) from the same seeds, so
 ciphertexts in and out are replicated.
 
-The fused transport (`fused_project`, `fused_project_streams`) is not
-sharded: it raises.
+The fused transport (`fused_project`) is not sharded: it raises.
 """
 
 from __future__ import annotations
@@ -28,9 +27,6 @@ __all__ = ["ShardedFheRwkvServer"]
 
 class ShardedFheRwkvServer(FheRwkvServer):
     def __init__(self, ctx, model, group: RankGroup, level: int = 3, **kw):
-        kw.setdefault("stage_mode", "expanded")
-        if kw["stage_mode"] != "expanded":
-            raise ValueError("the sharded server stages expanded diagonals")
         super().__init__(ctx, model, level=level, **kw)
         self.group = group
         self.sharded = ShardedBsgsMatvec(ctx, self.d, group)
@@ -44,7 +40,7 @@ class ShardedFheRwkvServer(FheRwkvServer):
         return self.sharded.kernel(c.shape[-2])(c, pt)
 
     def project_rkv(self, i: int, ct3: Ciphertext) -> Ciphertext:
-        pt = self.load_block(i)["rkv"]                # [3, B/size, G, l, N]
+        pt = self.load_block(i)["rkv"]                # [3, B/size, G, N]
         outs = [self._sharded_one(ct3.c[k], pt[k]) for k in range(3)]
         return Ciphertext(torch.stack(outs), self._out_scale(ct3))
 
@@ -53,7 +49,7 @@ class ShardedFheRwkvServer(FheRwkvServer):
         return Ciphertext(self._sharded_one(ct.c, pt), self._out_scale(ct))
 
     def project_ffn_key(self, i: int, ct: Ciphertext) -> Ciphertext:
-        pt = self.load_block(i)["ffn_key"]            # [P, B/size, G, l, N]
+        pt = self.load_block(i)["ffn_key"]            # [P, B/size, G, N]
         outs = [self._sharded_one(ct.c, pt[k]) for k in range(pt.shape[0])]
         return Ciphertext(torch.stack(outs), self._out_scale(ct))
 
@@ -66,5 +62,3 @@ class ShardedFheRwkvServer(FheRwkvServer):
     def fused_project(self, *args, **kw):
         raise NotImplementedError("the sharded server runs the explicit "
                                   "transport (FheRwkvClient(fused=False))")
-
-    fused_project_streams = fused_project

@@ -8,7 +8,7 @@ or one column batch of the naive ablation's.
 
 --path token (default): the chip_smoke configuration (D=2048, F=8192,
 N=8192, L=3, K=1, level 3) on the chosen transport -- classic:
-`FheRwkvClient` on the fused transport with i32 staging; device: the
+`FheRwkvClient` on the fused transport; device: the
 device-resident client `DeviceTokenRunner` -- and NTT backend; one warm-up
 token (two on the device transport: its second captures the projections'
 CUDA graphs, `ops.graphed`), then one steady token is traced.  (An
@@ -16,7 +16,7 @@ encrypted-RAG token is the classic token at --blocks 1.)
 --path retrieval: column-packed CT-CT scoring of one query against 50k
 seeded unit vectors (dim 64, Lorentz, N=8192), after one warm-up query.
 --path fullenc: one fully-encrypted FFN block (D=2048, F=8192, N=8192,
-L=11, K=8, dnum=8, i32 staging, consumed at level 11), after one warm-up
+L=11, K=8, dnum=8, consumed at level 11), after one warm-up
 block.
 --path bootstrap: one refresh of the 24-block chain's bootstrap (N=16384,
 L=46, K=8, dnum=6, h=64; width 2, radix 4, exp_degree 31, margin 3) of a
@@ -55,7 +55,7 @@ def _token_window(args):
         def token(tok, st):          # the device client has no host phases
             return runner.generate_token(tok, st) + ([],)
     else:
-        server = FheRwkvServer(ctx, model, level=3, stage_mode="i32")
+        server = FheRwkvServer(ctx, model, level=3)
         token = FheRwkvClient(ctx, model, server).generate_token
     state = {"s": generate_token_plaintext(model, 5, model.zero_state())[1]}
 
@@ -104,7 +104,7 @@ def _fullenc_window(args):
         np.random.default_rng(4242).uniform(-1, 1, d))
     ctx = CkksContext(CkksParams(n=8192, num_limbs=11, num_special=8,
                                  dnum=8), seed=0)
-    eng = FullyEncryptedFfn(ctx, d, f, stage_mode="i32")
+    eng = FullyEncryptedFfn(ctx, d, f)
     staged = eng.load_block(eng.encode_block(wk[0], wv[0], level=11), 11)
     ct = ctx.encrypt_replicated(np.random.default_rng(4242).uniform(-1, 1, d))
 

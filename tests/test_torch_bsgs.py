@@ -1,6 +1,6 @@
 """The port's BsgsMatvec against the JAX package's at d=32, n=256: the
 staged int32 encodings, the expanded residues and the output ciphertext
-words are equal, in both the expanded and the i32 stage modes."""
+words are equal, for a matrix staged in each of the three formats."""
 
 import jax
 import numpy as np
@@ -12,7 +12,8 @@ from fhe_spear_tpu.ckks import CkksParams as RefParams
 from fhe_spear_tpu.ops.bsgs import BsgsMatvec as RefMatvec
 from fhe_spear_tpu_torch.ckks import CkksContext, CkksParams
 from fhe_spear_tpu_torch.ops.bsgs import (BsgsMatvec, bsgs_dims,
-                                          extract_diagonals, rns_expand)
+                                          bsgs_kernel, extract_diagonals,
+                                          rns_expand)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -53,35 +54,37 @@ def test_dims_and_diagonals():
                                                 for j in range(6)])
 
 
-def test_matvec_expanded_bitwise(setup):
+@pytest.mark.parametrize("fmt", ["residues", "int32", "planes"])
+def test_matvec_formats_bitwise(setup, fmt):
+    """One matrix staged in each format of `expand_groups` gives the
+    reference's words through `__call__` and `bsgs_kernel`, neither told
+    the format."""
     ref, port, reng, peng, w, x, rct, pct = setup
     np.testing.assert_array_equal(np.asarray(rct.c).astype(np.int64),
                                   pct.c.numpy())
-    renc, penc = reng.encode(w), peng.encode(w)
+    if fmt == "planes":                        # composite scale ~2^56
+        scale = float(port.q_np[2]) * float(port.q_np[1])
+        renc, penc = reng.encode_wide(w, scale), peng.encode_wide(w, scale)
+    else:
+        renc, penc = reng.encode(w), peng.encode(w)
     np.testing.assert_array_equal(renc.coeffs, penc.coeffs)
-    rpt, ppt = reng.load(renc, 3), peng.load(penc, 3)
-    np.testing.assert_array_equal(np.asarray(rpt).astype(np.int64),
-                                  ppt.numpy())
-    rout, pout = reng(rct, rpt), peng(pct, ppt)
-    assert rout.scale == pout.scale
-    np.testing.assert_array_equal(np.asarray(rout.c).astype(np.int64),
-                                  pout.c.numpy())
-    got = port.decrypt_vec(pout)[:D]
-    np.testing.assert_allclose(got, w @ x, atol=1e-3)
-
-
-def test_matvec_i32_bitwise(setup):
-    ref, port, reng, peng, w, x, rct, pct = setup
-    renc, penc = reng.encode(w), peng.encode(w)
-    rout = jax.jit(reng._kernel_raw(3, i32=True))(
-        rct.c, jax.numpy.asarray(renc.coeffs), *reng._xs(3))
-    pout = peng._kernel_raw(3, i32=True)(
-        pct.c, torch.as_tensor(penc.coeffs), *peng._xs(3))
-    np.testing.assert_array_equal(np.asarray(rout).astype(np.int64),
-                                  pout.numpy())
-    # the two stage modes give the same words in the port too
+    if fmt == "residues":
+        rpt, ppt = reng.load(renc, 3), peng.load(penc, 3)
+        np.testing.assert_array_equal(np.asarray(rpt).astype(np.int64),
+                                      ppt.numpy())
+        want = reng(rct, rpt).c
+    else:
+        ppt = torch.as_tensor(penc.coeffs)
+        want = jax.jit(reng._kernel_raw(3, i32=True, wide=fmt == "planes"))(
+            rct.c, jax.numpy.asarray(renc.coeffs), *reng._xs(3))
+    want = np.asarray(want).astype(np.int64)
+    pout = peng(pct, ppt)
+    np.testing.assert_array_equal(want, pout.c.numpy())
     np.testing.assert_array_equal(
-        pout.numpy(), peng(pct, peng.load(penc, 3)).c.numpy())
+        want, bsgs_kernel(peng, 3, "single")(pct.c, ppt).numpy())
+    if fmt != "planes":
+        got = port.decrypt_vec(pout)[:D]
+        np.testing.assert_allclose(got, w @ x, atol=1e-3)
 
 
 def test_rns_expand_negative_coeffs(setup):

@@ -207,7 +207,7 @@ def test_graph_replays_eager_words_and_counts(card, monkeypatch):
     rng = np.random.RandomState(4)
     w = rng.uniform(-1, 1, (256, 256)) / 16
     pt = torch.as_tensor(eng.encode(w).coeffs, device=card)
-    kern_b = bsgs_kernel(eng, 3, "single", i32=True)
+    kern_b = bsgs_kernel(eng, 3, "single")
     kern = lambda cs: kern_b(cs, pt)
     p = ctx.ntt.p[:3].cpu()
     # a matvec: C = 1 for group 0, then the 15 giant groups in chunks of 8

@@ -72,9 +72,12 @@ def test_runner_stacks_and_encode_match_reference():
     pr = port_dc.DeviceTokenRunner(_port_ctx(), model_from_reference(
         ref_model), level=3)
     assert rr._seed == pr._seed
-    for k in ("rkv", "o", "fk", "fv"):
+    for k in ("rkv", "fk", "fv"):
         np.testing.assert_array_equal(np.asarray(rr.pt[k]),
                                       pr.pt[k].numpy())
+    # the port holds W_o's row as a stack of one matrix
+    np.testing.assert_array_equal(np.asarray(rr.pt["o"])[:, None],
+                                  pr.pt["o"].numpy())
     assert list(rr.cw) == list(pr.cw)
     for k in rr.cw:
         np.testing.assert_array_equal(np.asarray(rr.cw[k]), pr.cw[k].numpy())

@@ -33,9 +33,10 @@ def test_port_imports_no_jax_no_reference():
         m.name for m in pkgutil.walk_packages(fhe_spear_tpu_torch.__path__,
                                               "fhe_spear_tpu_torch.")]
     for mod in ("core.ntt_cuda", "core.fourstep_cuda",
-                "parallel.ntt_fourstep", "models.device_client", "bench",
-                "bench_streams", "ops.packing", "ops.retrieval", "apps.demo",
-                "apps.rag", "models.fully_encrypted", "bench_retrieval",
+                "parallel.ntt_fourstep", "models.device_client",
+                "bench_common", "ckks.device_encrypt", "ops.packing",
+                "ops.retrieval", "apps.demo", "apps.rag",
+                "models.fully_encrypted", "bench_retrieval",
                 "bench_fully_enc", "ckks.dft", "ops.polyeval",
                 "ckks.bootstrap", "apps.access_control", "apps.noise_study",
                 "bench_bootstrap", "bench_rag", "fhesim", "fhesim.simulator",
